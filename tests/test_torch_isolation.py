@@ -1,0 +1,79 @@
+"""The PyTorch port and chip_smoke.py never import JAX or the JAX package.
+
+The GPU machine that runs the port has no JAX, so an import of `jax`,
+`jaxlib` or `vi_slam_tpu` anywhere in `vi_slam_tpu_torch/` or in
+`chip_smoke.py` — even indirectly — would break it there.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "jaxlib", "vi_slam_tpu")
+
+
+def _forbidden(name: str) -> bool:
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+def _port_files():
+    files = sorted((ROOT / "vi_slam_tpu_torch").rglob("*.py"))
+    return files + [ROOT / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_forbidden_import_in_source(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            if _forbidden(node.module):
+                bad.append(node.module)
+    assert not bad, f"{path}: imports {bad}"
+
+
+_CHILD = r'''
+import importlib, importlib.abc, pkgutil, sys
+
+FORBIDDEN = ("jax", "jaxlib", "vi_slam_tpu")
+
+def forbidden(name):
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if forbidden(name):
+            raise ImportError(f"refused import of {name}")
+        return None
+
+preloaded = [m for m in sys.modules if forbidden(m)]
+assert not preloaded, preloaded
+sys.meta_path.insert(0, Refuse())
+import vi_slam_tpu_torch
+names = ["vi_slam_tpu_torch"] + [
+    m.name for m in pkgutil.walk_packages(vi_slam_tpu_torch.__path__, "vi_slam_tpu_torch.")
+]
+for n in names:
+    importlib.import_module(n)
+import chip_smoke
+loaded = sorted(m for m in sys.modules if forbidden(m))
+assert not loaded, loaded
+print(len(names))
+'''
+
+
+def test_port_imports_without_jax():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "-c", _CHILD], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 20

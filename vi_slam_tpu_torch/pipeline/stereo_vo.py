@@ -1,0 +1,558 @@
+"""Stereo visual odometry: the host state machine over the per-frame device
+program — a PyTorch copy of the tracking frame loop of the JAX package's
+`pipeline/stereo_vo.py::StereoVO`.
+
+Per frame, `_frame` extracts ORB features from both images, associates
+them along the scanlines, tracks the local map (covisibility window,
+projection matching, pose Gauss-Newton), and decides and creates a
+keyframe. All host-relevant numbers come back in one packed float32
+vector, copied to pinned host memory without blocking. The host keeps a
+`pipeline_depth`-deep queue of frames in flight and finalizes the oldest,
+so its bookkeeping (records, states, keyframe counts) happens on the same
+frames as in the reference.
+
+The reference's two `lax.cond`s (the wide-radius retry and the keyframe
+creation) become host branches here, which read one device scalar each.
+
+This slice covers the tracking loop only. The keyframe-rate programs
+(mapping pass, local BA, map maintenance) come in the next slice:
+`_kf_mapping` raises NotImplementedError when a cadence would run one, so
+a configuration that needs them cannot run silently without them. The
+same holds for a map reset (a lost young map, or a timestamp jump).
+Relocalization and the atlas need a place-recognition vocabulary; like
+the reference constructed without one, the port has neither, and a
+failed frame degrades OK -> RECENTLY_LOST -> LOST.
+"""
+
+from __future__ import annotations
+
+from collections import deque
+from dataclasses import dataclass
+from typing import List, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from vi_slam_tpu_torch.cameras import pinhole
+from vi_slam_tpu_torch.cameras.base import CameraParams
+from vi_slam_tpu_torch.features.extractor import Features, OrbExtractor
+from vi_slam_tpu_torch.lie.se3 import SE3
+from vi_slam_tpu_torch.ops import match as match_ops
+from vi_slam_tpu_torch.ops import pyramid as pyr_ops
+from vi_slam_tpu_torch.ops import stereo as stereo_ops
+from vi_slam_tpu_torch.ops.fast import top_k
+from vi_slam_tpu_torch.optim import pose_opt
+from vi_slam_tpu_torch.pipeline import steps
+from vi_slam_tpu_torch.slam_map import state as map_state
+from vi_slam_tpu_torch.utils.config import SystemConfig
+from vi_slam_tpu_torch.utils.device import resolve_device
+
+NOT_INITIALIZED = "NOT_INITIALIZED"
+OK = "OK"
+RECENTLY_LOST = "RECENTLY_LOST"
+LOST = "LOST"
+
+# packed layout (float32): [T_R(9), T_t(3), ref_R(9), ref_t(3), n_in,
+# n_matches, n_local, n_tracked_close, n_creatable, mp_count, kf_flag,
+# new_kf_slot, kf_count] = (33,)
+PACKED_LEN = 33
+_PK_NIN = 24
+_PK_NMATCH = 25
+_PK_NLOCAL = 26
+_PK_NCLOSE = 27
+_PK_NCREAT = 28
+_PK_MPCOUNT = 29
+_PK_KFFLAG = 30
+_PK_KFSLOT = 31
+_PK_KFCOUNT = 32
+
+
+class TrackBundle(NamedTuple):
+    """Per-frame device outputs; `packed` is the only one the host reads."""
+
+    T_R: torch.Tensor  # (3, 3) optimized Tcw
+    T_t: torch.Tensor  # (3,)
+    vel_R: torch.Tensor  # (3, 3) T_cur ∘ T_last^-1
+    vel_t: torch.Tensor  # (3,)
+    matched_mp: torch.Tensor  # (N,) int32
+    packed: torch.Tensor  # (33,) float32
+
+
+@dataclass
+class FrameJob:
+    """A frame dispatched and not yet finalized."""
+
+    frame_id: int
+    timestamp: float
+    bundle: Optional[TrackBundle]
+    feats: Features
+    uright: torch.Tensor
+    depth: torch.Tensor
+    packed_host: Optional[torch.Tensor] = None  # pinned copy of bundle.packed
+    copied: Optional[torch.cuda.Event] = None  # set when packed_host is filled
+
+
+@dataclass
+class FrameRecord:
+    frame_id: int
+    timestamp: float
+    ref_kf: int
+    T_rel: np.ndarray  # (4, 4) Tcw_frame @ Twc_refkf
+    state: str
+
+
+@dataclass
+class TrackStats:
+    n_matches: int = 0
+    n_inliers: int = 0
+    n_local_points: int = 0
+    n_kfs: int = 0
+    n_mps: int = 0
+    state: str = OK
+
+
+class StereoVO:
+    """Stereo VO over the array map, on one device."""
+
+    def __init__(self, cfg: SystemConfig, device="cuda"):
+        if cfg.camera.model != "pinhole":
+            raise NotImplementedError(
+                f"camera model {cfg.camera.model!r}: the port has the pinhole model only"
+            )
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        c = cfg.camera
+        dev = self.device
+        self.cam = CameraParams.make(c.fx, c.fy, c.cx, c.cy, dist=c.dist, bf=c.bf, device=dev)
+        self.baseline = c.bf / c.fx
+        self.close_depth = cfg.camera.th_depth * self.baseline
+        self.extractor = OrbExtractor(cfg.extractor, c.height, c.width, device=dev)
+        ext = cfg.extractor
+        self.level_scales = torch.from_numpy(
+            pyr_ops.scale_factors(ext.n_levels, ext.scale_factor)
+        ).to(dev)
+        self.row_offsets = torch.tensor(self.extractor.row_offsets, dtype=torch.int32, device=dev)
+        m = cfg.map
+        self.map = map_state.allocate(
+            m.max_keyframes, ext.n_features, m.max_points, m.max_obs_per_point, device=dev
+        )
+        self.n_kf = 0
+        self.n_mp = 0
+        self.state = NOT_INITIALIZED
+        self.ref_kf = -1
+        self.frame_id = -1
+        self.records: List[FrameRecord] = []
+        self.T_dev = SE3.identity(device=dev)
+        self.vel_dev = SE3.identity(device=dev)
+        self.T_np = np.eye(4)
+        self.ref_pose_np = np.eye(4)
+        self._last_good = (self.T_dev.R, self.T_dev.t)
+        self._lost_since = 0.0
+        self._reset_pending = False
+        self._last_frame_ts: Optional[float] = None
+        # device keyframe-decision carry: (frames_since_kf, ref_kf_tracked)
+        self.carry_dev = torch.zeros((2,), dtype=torch.int32, device=dev)
+        self.pipeline_depth = cfg.tracker.pipeline_depth
+        self._inflight: deque = deque()
+        self._map_tick = 0
+        self._ba_tick = 0
+        self._maint_tick = 0
+        tr = cfg.tracker
+        self._min_ok_static = max(tr.min_matches_motion // 2, 10)
+        self._kf_budget = min(tr.kf_point_budget, ext.n_features)
+
+    # ----------------------------------------------------- device programs
+
+    def _track(self, mstate, ref_slot, feats, uright, depth, T_last: SE3, vel: SE3) -> TrackBundle:
+        """Local-map tracking: covisibility window, projection matching
+        with a 3x-radius retry from the last pose when too few points
+        match, and pose Gauss-Newton."""
+        cfg = self.cfg
+        ext = cfg.extractor
+        n_feats = ext.n_features
+        T_pred = vel.compose(T_last)
+        window = steps.covis_window(mstate, ref_slot, cfg.ba.max_local_kfs)
+        mp_ids, mp_mask = steps.gather_local_points(mstate, window, cfg.ba.max_local_points)
+        proj = steps.project_local_points(
+            self.cam, mstate, mp_ids, mp_mask, T_pred,
+            cfg.camera.width, cfg.camera.height,
+            n_levels=ext.n_levels, scale_factor=ext.scale_factor,
+        )
+
+        def run_match(rad, T_init):
+            m = match_ops.search_by_projection(
+                proj.uv, proj.level, proj.desc, proj.valid,
+                feats.xy, feats.level, feats.desc, feats.valid,
+                radius=rad, level_scales=self.level_scales,
+                max_dist=cfg.matcher.th_high, ratio=cfg.matcher.nn_ratio,
+            )
+            m = match_ops.resolve_duplicate_targets(m, n_feats)
+            obs, kp_idx = steps.build_pose_obs(proj, m, feats, uright)
+            T_opt, inlier, n_in = pose_opt.pose_optimize(
+                self.cam, T_init, obs, rounds=cfg.ba.pose_rounds,
+                iters=cfg.ba.pose_iters_per_round,
+            )
+            return m, kp_idx, T_opt, inlier, n_in
+
+        radius = cfg.tracker.search_radius
+        m, kp_idx, T, inlier, n_in = run_match(radius, T_pred)
+        if int(n_in) < cfg.tracker.min_matches_motion:
+            m, kp_idx, T, inlier, n_in = run_match(3.0 * radius, T_last)
+
+        ok = m.ok & proj.valid & inlier
+        matched_mp = steps.scatter_matches_to_kps(n_feats, kp_idx, mp_ids, ok)
+        vel_new = T.compose(T_last.inverse())
+        close = (depth > 0) & (depth < self.close_depth) & feats.valid
+        has_mp = matched_mp >= 0
+        K = mstate.kf_R.shape[0]
+        ref_safe = torch.clamp(ref_slot, 0, K - 1)
+        f32 = dict(dtype=torch.float32, device=self.device)
+        counts = torch.stack([
+            n_in.to(torch.float32),
+            torch.sum(m.ok & proj.valid).to(torch.float32),
+            torch.sum(mp_mask).to(torch.float32),
+            torch.sum(close & has_mp).to(torch.float32),
+            torch.sum(close & ~has_mp).to(torch.float32),
+            mstate.mp_count[0].to(torch.float32),
+            torch.zeros((), **f32),  # kf_flag
+            torch.full((), -1.0, **f32),  # new slot
+            mstate.kf_count[0].to(torch.float32),
+        ])
+        packed = torch.cat([
+            T.R.reshape(-1), T.t, mstate.kf_R[ref_safe].reshape(-1),
+            mstate.kf_t[ref_safe], counts,
+        ]).to(torch.float32)
+        return TrackBundle(T_R=T.R, T_t=T.t, vel_R=vel_new.R, vel_t=vel_new.t,
+                           matched_mp=matched_mp, packed=packed)
+
+    def _extract_pair(self, imgs_u8: torch.Tensor):
+        """ORB on both images of a (2, H, W) uint8 pair, then stereo
+        association: (left features, u_right, depth)."""
+        cfg = self.cfg
+        featsL, atlasL = self.extractor.extract(imgs_u8[0].to(torch.float32))
+        featsR, atlasR = self.extractor.extract(imgs_u8[1].to(torch.float32))
+        sm = stereo_ops.match_stereo(
+            featsL, featsR, atlasL, atlasR, self.row_offsets, self.level_scales,
+            self.cam.bf, max_disp=float(cfg.camera.bf / 0.5),
+            use_mutual=cfg.matcher.stereo_mutual,
+            use_median=cfg.matcher.stereo_median_sweep,
+        )
+        minus1 = torch.full_like(sm.u_right, -1.0)
+        uright = torch.where(sm.ok, sm.u_right, minus1)
+        depth = torch.where(sm.ok, sm.depth, minus1)
+        return featsL, uright, depth
+
+    def _frame(self, imgs_u8, mstate, carry, T_last, vel, frame_id: int, ts: float):
+        """One frame: extract + stereo + track + the keyframe decision and
+        creation (carry = (frames_since_kf, ref_kf_tracked))."""
+        tr = self.cfg.tracker
+        feats, uright, depth = self._extract_pair(imgs_u8)
+        K = mstate.kf_R.shape[0]
+        ref_slot = torch.clamp(mstate.kf_count[0].long() - 1, 0, K - 1)
+        bundle = self._track(mstate, ref_slot, feats, uright, depth, T_last, vel)
+        p = bundle.packed
+        n_in = p[_PK_NIN].to(torch.int32)
+        n_close = p[_PK_NCLOSE].to(torch.int32)
+        n_creat = p[_PK_NCREAT].to(torch.int32)
+        fs = carry[0] + 1
+        ref_tracked = torch.clamp(carry[1], min=1)
+        ok = n_in >= self._min_ok_static
+        capacity = mstate.kf_count[0] < K - 1
+        timeout = fs >= tr.max_frames_between_kf
+        min_frames_ok = fs >= tr.min_frames_between_kf
+        need_close = (n_close < 100) & (n_creat > 70)
+        weak = n_in.to(torch.float32) < tr.kf_ref_ratio * ref_tracked.to(torch.float32)
+        kf_new = ok & capacity & (timeout | (min_frames_ok & (need_close | weak)))
+        slot = mstate.kf_count[0].long()
+        if bool(kf_new):
+            mstate = self._create_kf_body(
+                mstate, slot, SE3(bundle.T_R, bundle.T_t), frame_id, ts,
+                feats, uright, depth, bundle.matched_mp, self._kf_budget,
+            )
+        carry_new = torch.where(
+            kf_new, torch.stack([torch.zeros_like(n_in), n_in]),
+            torch.stack([fs, carry[1]]),
+        ).to(torch.int32)
+        packed = p.clone()
+        packed[_PK_KFFLAG] = kf_new.to(torch.float32)
+        packed[_PK_KFSLOT] = torch.where(kf_new, slot, -1).to(torch.float32)
+        packed[_PK_KFCOUNT] = mstate.kf_count[0].to(torch.float32)
+        return bundle._replace(packed=packed), mstate, carry_new, feats, uright, depth
+
+    def _create_kf_body(self, mstate, slot, T: SE3, frame_id, ts, feats, uright, depth,
+                        matched_mp, budget: int):
+        """Insert the keyframe, create up to `budget` new points from its
+        closest unmatched stereo keypoints, and refresh the statistics of
+        the points it matched."""
+        ext = self.cfg.extractor
+        mstate = map_state.insert_keyframe(
+            mstate, slot, T, frame_id, ts, feats, uright, depth, matched_mp
+        )
+        M = mstate.mp_pos.shape[0]
+        base_id = mstate.mp_count[0].clone()  # mp_count is updated in place below
+        can = (
+            feats.valid & (depth > 0) & (depth < 2.0 * self.close_depth)
+            & (matched_mp < 0)
+        )
+        dvals = torch.where(can, depth, torch.full_like(depth, float("inf")))
+        neg_top, sel = top_k(-dvals, budget)
+        create0 = torch.isfinite(-neg_top)
+        offsets = torch.cumsum(create0.to(torch.int32), 0) - 1
+        create = create0 & (base_id + offsets < M - 1)
+        kp_xy = feats.xy[sel]
+        pc = pinhole.unproject(self.cam, kp_xy) * depth[sel][:, None]
+        Twc = T.inverse()
+        pw = Twc.apply(pc)
+        rays = pw - Twc.t
+        dist = torch.sqrt(torch.sum(rays * rays, dim=-1))
+        normal = rays / torch.clamp(dist[:, None], min=1e-9)
+        sf = ext.scale_factor
+        max_dist = dist * torch.pow(sf, feats.level[sel].to(torch.float32))
+        min_dist = max_dist / sf ** (ext.n_levels - 1)
+        mstate, _ids = map_state.create_points(
+            mstate, base_id, slot, sel, pw, feats.desc[sel], normal,
+            min_dist, max_dist, create,
+        )
+        upd_ids = torch.where(matched_mp >= 0, matched_mp, torch.full_like(matched_mp, M - 1))
+        return map_state.update_point_stats(mstate, upd_ids)
+
+    # ------------------------------------------------------------------ API
+
+    def process_stereo(self, img_left, img_right, timestamp: float) -> TrackStats:
+        """Track one stereo pair. Returns the stats of the newest finalized
+        frame (host decisions lag `pipeline_depth` frames)."""
+        self._pre_frame(timestamp)
+        imgs = self._upload_images(img_left, img_right)
+        if self.state == NOT_INITIALIZED:
+            self.flush()
+            feats, uright, depth = self._extract_pair(imgs)
+            return self._track_entry(feats, uright, depth, timestamp)
+        self.frame_id += 1
+        bundle, self.map, self.carry_dev, feats, uright, depth = self._frame(
+            imgs, self.map, self.carry_dev, self.T_dev, self.vel_dev,
+            self.frame_id, timestamp,
+        )
+        job = FrameJob(self.frame_id, timestamp, bundle, feats, uright, depth)
+        if self.device.type == "cuda":
+            job.packed_host = torch.empty((PACKED_LEN,), dtype=torch.float32, pin_memory=True)
+            job.packed_host.copy_(bundle.packed, non_blocking=True)
+            job.copied = torch.cuda.Event()
+            job.copied.record()
+        # optimistic device pose chain; finalize repairs it on failure
+        self.T_dev = SE3(bundle.T_R, bundle.T_t)
+        self.vel_dev = SE3(bundle.vel_R, bundle.vel_t)
+        self._inflight.append(job)
+        st = None
+        while len(self._inflight) > self.pipeline_depth:
+            st = self._finalize(self._inflight.popleft())
+        return st if st is not None else TrackStats(
+            n_kfs=self.n_kf, n_mps=self.n_mp, state=self.state
+        )
+
+    def flush(self) -> Optional[TrackStats]:
+        """Finalize every frame in flight."""
+        st = None
+        while self._inflight:
+            st = self._finalize(self._inflight.popleft())
+        return st
+
+    def _upload_images(self, img_left, img_right) -> torch.Tensor:
+        """One (2, H, W) uint8 upload per stereo pair."""
+        stacked = torch.from_numpy(
+            np.stack([np.asarray(img_left), np.asarray(img_right)]).astype(np.uint8)
+        )
+        if self.device.type == "cuda":
+            return stacked.pin_memory().to(self.device, non_blocking=True)
+        return stacked
+
+    # ------------------------------------------------------------- tracking
+
+    def _track_entry(self, feats, uright, depth, timestamp) -> TrackStats:
+        """Synchronous initialization attempt."""
+        self.frame_id += 1
+        job = FrameJob(self.frame_id, timestamp, None, feats, uright, depth)
+        return self._finalize(job)
+
+    def _pull_packed(self, job: FrameJob) -> np.ndarray:
+        if job.copied is not None:
+            job.copied.synchronize()
+            return job.packed_host.numpy().copy()
+        return job.bundle.packed.cpu().numpy().copy()
+
+    def _finalize(self, job: FrameJob) -> TrackStats:
+        st = TrackStats(n_kfs=self.n_kf, n_mps=self.n_mp)
+        if job.bundle is None:
+            ok = self._initialize(job.feats, job.uright, job.depth, job.timestamp)
+            st.n_kfs, st.n_mps = self.n_kf, self.n_mp
+            self._record(job, self.T_np, self.ref_pose_np, self.ref_kf, OK if ok else LOST)
+            st.state = self.state
+            return st
+
+        p = self._pull_packed(job)
+        T_np = np.eye(4)
+        T_np[:3, :3] = p[0:9].reshape(3, 3)
+        T_np[:3, 3] = p[9:12]
+        ref_pose = np.eye(4)
+        ref_pose[:3, :3] = p[12:21].reshape(3, 3)
+        ref_pose[:3, 3] = p[21:24]
+        n_in = int(p[_PK_NIN])
+        self.n_mp = int(p[_PK_MPCOUNT])
+        st.n_matches = int(p[_PK_NMATCH])
+        st.n_inliers = n_in
+        st.n_local_points = int(p[_PK_NLOCAL])
+
+        min_ok = max(self.cfg.tracker.min_matches_motion // 2, 10)
+        if self.state != OK:
+            min_ok = max(min_ok, 50)
+        failed = n_in < min_ok
+        if self.state in (OK, RECENTLY_LOST) and failed or self.state == LOST:
+            return self._handle_failure(job, st)
+
+        self.state = OK
+        self.T_np = T_np
+        self.ref_pose_np = ref_pose
+        self._last_good = (job.bundle.T_R, job.bundle.T_t)
+        kf_created = int(p[_PK_KFFLAG]) > 0
+        self.n_kf = max(self.n_kf, int(p[_PK_KFCOUNT]))
+        ref_used = int(p[_PK_KFCOUNT]) - (1 if kf_created else 0) - 1
+        self._record(job, T_np, ref_pose, ref_used, OK)
+        self.ref_kf = self.n_kf - 1
+        if kf_created:
+            slot = int(p[_PK_KFSLOT])
+            self.ref_pose_np = T_np.copy()
+            # the keyframe's own record is relative to itself
+            self.records[-1] = FrameRecord(job.frame_id, job.timestamp, slot, np.eye(4), OK)
+            self._kf_mapping()
+        st.n_kfs, st.n_mps, st.state = self.n_kf, self.n_mp, OK
+        return st
+
+    def _handle_failure(self, job: FrameJob, st: TrackStats) -> TrackStats:
+        """Failed-frame ladder OK -> RECENTLY_LOST -> LOST. Relocalization
+        needs a vocabulary the port does not take (the reference's
+        `_try_relocalize` returns 0 without one)."""
+        if self.state == OK:
+            self.state = RECENTLY_LOST
+            self._lost_since = job.timestamp
+            # freeze the device pose chain at the last good pose
+            self.T_dev = SE3(*self._last_good)
+            self.vel_dev = SE3.identity(device=self.device)
+        elif self.state == RECENTLY_LOST and (
+            job.timestamp - self._lost_since > self.cfg.tracker.recently_lost_sec
+        ):
+            self.state = LOST
+            if self.n_kf < 10:
+                # the reference resets a young lost map at the next frame
+                self._reset_pending = True
+        self._record(job, self.T_np, self.ref_pose_np, self.ref_kf, self.state)
+        st.n_kfs, st.n_mps, st.state = self.n_kf, self.n_mp, self.state
+        return st
+
+    def _kf_mapping(self):
+        """Keyframe-rate duties. Their programs come in the next slice, so
+        each raises when its cadence would run it."""
+        tr = self.cfg.tracker
+        self._map_tick += 1
+        if self.n_kf >= 3 and self._map_tick % tr.mapping_every == 0:
+            raise NotImplementedError(
+                "mapping pass (fuse + triangulate) is not ported yet;"
+                " set tracker.mapping_every beyond the run's keyframes"
+            )
+        self._ba_tick += 1
+        if self.n_kf >= 3 and self._ba_tick % tr.local_ba_every == 0:
+            raise NotImplementedError(
+                "local BA is not ported yet; set tracker.local_ba_every"
+                " beyond the run's keyframes"
+            )
+        if self.n_kf >= 4:
+            self._maint_tick += 1
+            if self._maint_tick % tr.maintenance_every == 0:
+                raise NotImplementedError(
+                    "map maintenance (culling) is not ported yet; set"
+                    " tracker.maintenance_every beyond the run's keyframes"
+                )
+
+    # ------------------------------------------------------------- helpers
+
+    def _initialize(self, feats, uright, depth, timestamp) -> bool:
+        """Stereo initialization: the first frame with >= 100 stereo
+        keypoints becomes keyframe 0 at the origin."""
+        n_good = int(torch.sum(feats.valid & (depth > 0)))
+        if n_good < 100:
+            return False
+        self.T_dev = SE3.identity(device=self.device)
+        self.vel_dev = SE3.identity(device=self.device)
+        self.T_np = np.eye(4)
+        self._create_keyframe(
+            feats, uright, depth,
+            torch.full((feats.xy.shape[0],), -1, dtype=torch.int32, device=self.device),
+            timestamp,
+        )
+        self.n_mp = int(self.map.mp_count[0])
+        self.state = OK
+        self._last_good = (self.T_dev.R, self.T_dev.t)
+        self.carry_dev = torch.tensor([0, n_good], dtype=torch.int32, device=self.device)
+        return True
+
+    def _create_keyframe(self, feats, uright, depth, matched_mp, timestamp):
+        """Host-decided keyframe creation (initialization)."""
+        slot = self.n_kf
+        self.n_kf += 1
+        budget = min(1024 if slot == 0 else self.cfg.tracker.kf_point_budget,
+                     self.cfg.extractor.n_features)
+        self.map = self._create_kf_body(
+            self.map, slot, self.T_dev, self.frame_id, timestamp,
+            feats, uright, depth, matched_mp, budget,
+        )
+        self.ref_kf = slot
+        self.ref_pose_np = self.T_np.copy()
+
+    def _pre_frame(self, timestamp: float):
+        """Timestamp sanity and a pending map reset. Both need the map
+        reset, which comes in a later slice, so both raise."""
+        if self._last_frame_ts is not None and self.state != NOT_INITIALIZED:
+            dt = timestamp - self._last_frame_ts
+            if dt < 0 or dt > self.cfg.tracker.max_timestamp_jump_sec:
+                raise NotImplementedError(
+                    f"timestamp jump of {dt} s needs a map reset, not ported yet"
+                )
+        self._last_frame_ts = timestamp
+        if self._reset_pending:
+            raise NotImplementedError(
+                "the map was lost with fewer than 10 keyframes; its reset is not ported yet"
+            )
+
+    def _record(self, job: FrameJob, T_np, ref_pose_np, ref_kf, state):
+        if ref_kf >= 0:
+            T_rel = T_np @ np.linalg.inv(ref_pose_np)
+        else:
+            T_rel = T_np.copy()
+        self.records.append(FrameRecord(job.frame_id, job.timestamp, ref_kf, T_rel, state))
+
+    # ------------------------------------------------------------- outputs
+
+    def trajectory_wc(self) -> np.ndarray:
+        """(N, 4, 4) Twc of every processed frame, through its reference
+        keyframe's current pose."""
+        self.flush()
+        kf_R = self.map.kf_R.cpu().numpy()
+        kf_t = self.map.kf_t.cpu().numpy()
+        out = []
+        for rec in self.records:
+            if rec.ref_kf >= 0:
+                T_ref = np.eye(4)
+                T_ref[:3, :3] = kf_R[rec.ref_kf]
+                T_ref[:3, 3] = kf_t[rec.ref_kf]
+                Tcw = rec.T_rel @ T_ref
+            else:
+                Tcw = rec.T_rel
+            out.append(np.linalg.inv(Tcw))
+        return np.stack(out) if out else np.zeros((0, 4, 4))
+
+
+def make_stereo_vo(cfg: SystemConfig, device="cuda") -> StereoVO:
+    """Entry point of the tracking loop; runs on CUDA unless the caller
+    passes device="cpu". The ORB frontend only: the KLT frontend comes in
+    a later slice."""
+    if cfg.tracker.frontend != "orb":
+        raise NotImplementedError(f"frontend {cfg.tracker.frontend!r} is not ported yet")
+    return StereoVO(cfg, device=device)
