@@ -10,28 +10,37 @@ phase with its seconds, flushed as the phase ends:
   build   `nvcc` of vi_slam_tpu_torch/csrc/*.cu into the ignored
           vi_slam_tpu_torch/_build/ (ctypes-loaded, no PyTorch headers);
   kernel fast_resp_pref
-          the FAST-9 CUDA kernel against its plain PyTorch version on the
-          card, on the 8 pyramid levels of a rendered 1241x376 frame and on
-          a random-texture image: rtol 1e-5, atol 1e-3 on the map, equal
-          keypoints; device time (calls queued back to back behind a
-          busy device) and time per call, both by CUDA events;
+          the FAST-9 CUDA kernel (response, NMS, bonus and per-cell winner
+          of every level of a pyramid in one launch) against its plain
+          PyTorch version on the card, on the 8-level left and right
+          pyramids of a rendered 1241x376 frame and on a random-texture
+          image as a one-level pyramid: rtol 1e-5, atol 1e-3 on each map,
+          equal cells (score, x, y), and equal keypoints, per level and from
+          the extractor's selection of all levels at once; per pyramid the
+          device time (calls queued back to back behind a busy device) and
+          the time per call, both by CUDA events, the plain version's, and
+          the bound with its bytes term and the operations term of what
+          this image needs, beside the earlier per-level kernel's times
+          and ptxas's registers and shared memory;
   slice   the tracking frame loop (`make_stereo_vo` ->
           `process_stereo`) over 100 rendered KITTI-00-sized frames on
           "cuda", after a 10-frame warm pass: steady frames/s, ATE, lost
           frames, keyframes, map points and the kernel's launch count,
-          which must be 16 per frame processed. ATE must be within
-          max(1 cm, 20 %) of the JAX reference's ATE on the same frames.
+          which must be 2 per frame processed (one per image pyramid).
+          ATE must be within max(1 cm, 20 %) of the JAX reference's ATE
+          on the same frames.
 
 Any failure raises and the script exits non-zero with the traceback. On
 success it prints the `nvidia-smi` line, a JSON line of per-kernel
 measurements ("ms", "plain_ms" and "bound_ms" are device times for the
-8-level pyramid of one image), and last a JSON line
+8-level left pyramid of frame 0), and last a JSON line
 {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -59,6 +68,12 @@ FP32_OPS_PER_S = 67e12
 
 KERNEL_SOURCE = "vi_slam_tpu_torch/csrc/fast_resp_pref.cu"
 KERNEL_REPLACES = "vi_slam_tpu/ops/fast_pallas.py:174"
+# The same kernel phase at commit edc5e27, where the kernel ran one launch
+# per level: device time and time per call for the left pyramid of frame 0.
+EARLIER_COMMIT = "edc5e27caf275d9a132b48d3d792ab10803fd3a1"
+EARLIER_CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
+EARLIER_PYRAMID_US = 107.0
+EARLIER_PYRAMID_CALL_MS = 0.281
 
 
 def log_phase(name: str, t0: float, detail: str = "") -> None:
@@ -143,26 +158,50 @@ def device_ms(fn, reps: int) -> float:
     return a.elapsed_time(b) / reps
 
 
-def fast_ops_count(img, th_lo: float) -> int:
-    """Float operations the FAST-9 map needs on this image: per pixel 16
-    differences, 64 threshold compares, 32 excess subtractions and 32
-    clamps, 9 NMS compares; per valid low-threshold arc start 9 adds and
-    1 max."""
+def fast_ops_count(img, th_lo: float, pref) -> int:
+    """Float operations that the FAST-9 map `pref` of `img` and its cell
+    winners need: per interior pixel 16 differences and 32 low-threshold
+    compares; per pixel 9 NMS compares and 1 cell-max compare; per pixel
+    with a low-threshold 9-arc one polarity's 16 excesses (a subtract and a
+    clamp each; a pixel never has both); per valid arc start 8 adds and 1
+    max; per kept pixel 32 high-threshold compares and the bonus add."""
     import torch
     from vi_slam_tpu_torch.ops import fast as fast_ops
 
+    h, w = img.shape
     d = fast_ops._circle_diffs(img)
-    starts = 0
-    for run in (fast_ops._arc_runs(d > th_lo), fast_ops._arc_runs(d < -th_lo)):
-        bits = run & 0xFFFF
-        for j in range(16):
-            starts += int(torch.sum((bits >> j) & 1))
-    return 153 * img.numel() + 10 * starts
+    runs = (fast_ops._arc_runs(d > th_lo) | fast_ops._arc_runs(d < -th_lo)) & 0xFFFF
+    runs = torch.where(fast_ops._interior_mask(h, w, img.device), runs, torch.zeros_like(runs))
+    arc_px = int(torch.count_nonzero(runs))
+    starts = sum(int(torch.count_nonzero((runs >> j) & 1)) for j in range(16))
+    kept = int(torch.count_nonzero(pref))
+    interior = max(h - 2 * fast_ops.BORDER, 0) * max(w - 2 * fast_ops.BORDER, 0)
+    return 48 * interior + 10 * h * w + 32 * arc_px + 9 * starts + 33 * kept
+
+
+def ptxas_usage(log: str) -> str:
+    """ptxas's registers, shared memory and spills per kernel entry, from
+    nvcc's -Xptxas -v output."""
+    out, entry = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1)
+            t = re.search(r"ILi(\d+)E", entry)
+            entry = f"fast_pyramid_kernel<{t.group(1)}>" if t and "fast_pyramid" in entry else entry
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and entry:
+            out.append(f"{entry}: spill stores {m.group(1)} B, loads {m.group(2)} B")
+        m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
+        if m and entry:
+            out.append(f"{entry}: {m.group(1)} registers, {m.group(2)} B shared memory")
+    return "; ".join(out) if out else "not rebuilt in this run"
 
 
 def phase_kernel(extractor_cfg, world):
-    """FAST-9 kernel vs its plain version on the card, per pyramid level of
-    a rendered frame and on a random-texture image."""
+    """The grouped FAST-9 kernel vs its plain version on the card: the left
+    and right pyramids of frame 0, and a random-texture image as a
+    one-level pyramid."""
     import torch
     from vi_slam_tpu_torch.features.extractor import level_budgets
     from vi_slam_tpu_torch.ops import fast as fast_ops
@@ -174,64 +213,78 @@ def phase_kernel(extractor_cfg, world):
     cell = extractor_cfg.cell_size
     budgets = level_budgets(extractor_cfg.n_features, extractor_cfg.n_levels,
                             extractor_cfg.scale_factor)
-    left, _ = render_frames(world, 1)[0]
-    img0 = torch.from_numpy(left.astype(np.uint8)).to(dev).to(torch.float32)
-    levels = pyr_ops.build_pyramid(img0, extractor_cfg.n_levels, extractor_cfg.scale_factor)
+    weights = pyr_ops.pyramid_weights(H, W, extractor_cfg.n_levels,
+                                      extractor_cfg.scale_factor, dev)
+
+    def pyramid(u8):
+        img = torch.from_numpy(u8.astype(np.uint8)).to(dev).to(torch.float32)
+        return pyr_ops.build_pyramid(img, extractor_cfg.n_levels,
+                                     extractor_cfg.scale_factor, weights)
+
+    left, right = render_frames(world, 1)[0]
     rng = np.random.default_rng(5)
     noise = torch.from_numpy(rng.uniform(0, 255, (H, W)).astype(np.float32)).to(dev)
-    cases = [(f"level{l}", img.contiguous(), budgets[l]) for l, img in enumerate(levels)]
-    cases.append(("random", noise, budgets[0]))
+    cases = [("left", pyramid(left)), ("right", pyramid(right)), ("random", [noise])]
 
     rows = []
-    for name, img, budget in cases:
-        got = fast_kernel.resp_pref_cuda(img, th, th_lo)
-        want = fast_ops.resp_pref(img, th, th_lo)
+    for name, levels in cases:
+        got = fast_kernel.pyramid_resp_cells_cuda(levels, th, th_lo, cell)
+        want = fast_kernel.pyramid_resp_cells_plain(levels, th, th_lo, cell)
         torch.cuda.synchronize()
-        err = float(torch.max(torch.abs(got - want)))
-        close = bool(torch.all(torch.abs(got - want) <= 1e-3 + 1e-5 * torch.abs(want)))
-        kg = fast_ops.select_keypoints(got, cell, budget)
-        kw = fast_ops.select_keypoints(want, cell, budget)
-        same_kp = all(bool(torch.equal(a, b)) for a, b in zip(kg, kw))
-        if not (close and same_kp):
-            raise AssertionError(
-                f"fast_resp_pref {name} {tuple(img.shape)}: max_abs_err {err},"
-                f" allclose {close}, equal keypoints {same_kp}"
-            )
+        want_maps = want.level_maps()
+        err, n_kp, want_kp = 0.0, 0, []
+        for l, (m, c, wm, wc) in enumerate(zip(got.level_maps(), got.level_cells(),
+                                                want_maps, want.level_cells())):
+            diff = torch.abs(m - wm)
+            lerr = float(torch.max(diff))
+            close = bool(torch.all(diff <= 1e-3 + 1e-5 * torch.abs(wm)))
+            same_cells = all(bool(torch.equal(a, b)) for a, b in zip(c, wc))
+            kg = fast_ops.select_from_cells(*c, budgets[l])
+            kw = fast_ops.select_keypoints(wm, cell, budgets[l])
+            same_kp = all(bool(torch.equal(a, b)) for a, b in zip(kg, kw))
+            if not (close and same_cells and same_kp):
+                raise AssertionError(
+                    f"fast_pyramid {name} level {l} {tuple(m.shape)}: max_abs_err {lerr},"
+                    f" allclose {close}, equal cells {same_cells}, equal keypoints {same_kp}"
+                )
+            err = max(err, lerr)
+            n_kp += int(kg[2].sum())
+            want_kp.append(kw)
+        # The extractor's selection of all levels at once, from the flat cells.
+        counts = got.tiles.count
+        ks = [min(b, n) for b, n in zip(budgets, counts)]
+        all_kp = fast_ops.select_from_level_cells(
+            got.score, got.xy[0], got.xy[1], *fast_ops.level_picks(counts, ks, dev))
+        if not all(bool(torch.equal(a, torch.cat(b))) for a, b in zip(all_kp, zip(*want_kp))):
+            raise AssertionError(f"fast_pyramid {name}: select_from_level_cells differs"
+                                 " from select_keypoints per level")
 
         def kernel():
-            return fast_kernel.resp_pref_cuda(img, th, th_lo)
+            return fast_kernel.pyramid_resp_cells_cuda(levels, th, th_lo, cell)
 
         def plain():
-            return fast_ops.resp_pref(img, th, th_lo)
+            return fast_kernel.pyramid_resp_cells_plain(levels, th, th_lo, cell)
 
-        ms, plain_ms = device_ms(kernel, 50), device_ms(plain, 5)
-        ms_call, plain_call = call_ms(kernel, 50), call_ms(plain, 5)
-        n_bytes = 8 * img.numel()
-        n_ops = fast_ops_count(img, th_lo)
-        bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        ms, plain_ms = device_ms(kernel, 100), device_ms(plain, 5)
+        ms_call, plain_call = call_ms(kernel, 100), call_ms(plain, 5)
+        n_px = sum(img.numel() for img in levels)
+        n_cells = got.tiles.total
+        bytes_ms = (8 * n_px + 12 * n_cells) / HBM_BYTES_PER_S * 1e3
+        n_ops = sum(fast_ops_count(img, th_lo, m) for img, m in zip(levels, want_maps))
         ops_ms = n_ops / FP32_OPS_PER_S * 1e3
-        rows.append(dict(name=name, shape=tuple(img.shape), err=err, ms=ms,
-                         plain_ms=plain_ms, ms_call=ms_call, plain_call=plain_call,
-                         bytes_ms=bytes_ms, ops_ms=ops_ms))
-        print(f"  fast_resp_pref {name} {tuple(img.shape)}: max_abs_err {err:.3g},"
-              f" keypoints {int(kg[2].sum())} equal | device: kernel {ms * 1e3:.3f} us,"
-              f" plain {plain_ms * 1e3:.3f} us | per call: kernel {ms_call * 1e3:.3f} us,"
-              f" plain {plain_call * 1e3:.3f} us | bound {max(bytes_ms, ops_ms) * 1e3:.3f} us"
-              f" (bytes {bytes_ms * 1e3:.3f} us, ops {ops_ms * 1e3:.3f} us)", flush=True)
+        row = dict(name=name, levels=len(levels), px=n_px, cells=n_cells, err=err, ms=ms,
+                   plain_ms=plain_ms, ms_call=ms_call, plain_call=plain_call,
+                   bytes_ms=bytes_ms, ops_ms=ops_ms, bound_ms=max(bytes_ms, ops_ms),
+                   bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+        rows.append(row)
+        print(f"  fast_pyramid {name}: {len(levels)} levels, {n_px} px, {n_cells} cells:"
+              f" max_abs_err {err:.3g}, cells and {n_kp} keypoints equal | device: kernel"
+              f" {ms * 1e3:.3f} us, plain {plain_ms * 1e3:.1f} us | per call: kernel"
+              f" {ms_call * 1e3:.3f} us, plain {plain_call * 1e3:.1f} us | bound"
+              f" {row['bound_ms'] * 1e3:.3f} us by {row['bound_by']} (bytes"
+              f" {bytes_ms * 1e3:.3f} us, operations {ops_ms * 1e3:.3f} us)", flush=True)
     torch.cuda.synchronize()
-    pyr = [r for r in rows if r["name"].startswith("level")]
-    bytes_ms = sum(r["bytes_ms"] for r in pyr)
-    ops_ms = sum(r["ops_ms"] for r in pyr)
-    return {
-        "levels": rows,
-        "pyramid_ms": sum(r["ms"] for r in pyr),
-        "pyramid_plain_ms": sum(r["plain_ms"] for r in pyr),
-        "pyramid_call_ms": sum(r["ms_call"] for r in pyr),
-        "pyramid_plain_call_ms": sum(r["plain_call"] for r in pyr),
-        "pyramid_bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "max_abs_err": max(r["err"] for r in rows),
-    }
+    return rows
 
 
 def phase_slice(world):
@@ -266,10 +319,10 @@ def phase_slice(world):
     launches = fast_kernel.launches
 
     frames_done = N_WARM + N_FRAMES
-    if launches <= 0 or launches != 16 * frames_done:
+    if launches <= 0 or launches != 2 * frames_done:
         raise AssertionError(
             f"fast_resp_pref launched {launches} times for {frames_done} frames,"
-            f" expected {16 * frames_done}"
+            f" expected {2 * frames_done} (one per image pyramid)"
         )
     est = vo.trajectory_wc()
     ate_cm = evaluation.ate_rmse(est[:, :3, 3], world.poses_wc[:, :3, 3])["rmse"] * 100.0
@@ -321,20 +374,23 @@ def main() -> int:
     t0 = time.perf_counter()
     built = kbuild.build()
     kbuild.load_library()
-    ptxas = " ".join(l.strip() for l in built.log.splitlines() if "registers" in l or "smem" in l)
+    ptxas = ptxas_usage(built.log)
     log_phase("build", t0, f"| nvcc {built.seconds:.2f} s -> {built.path.name} | {ptxas}")
 
     world = synthetic.make_billboard_world(n_frames=N_FRAMES, n_boards=4000, seed=11, speed=1.0)
     cfg = slice_config()
 
     t0 = time.perf_counter()
-    kern = phase_kernel(cfg.extractor, world)
+    rows = phase_kernel(cfg.extractor, world)
+    kern = rows[0]  # the left pyramid of frame 0
     log_phase("kernel fast_resp_pref", t0,
-              f"| pyramid of one image (8 launches): device kernel {kern['pyramid_ms']:.4f} ms,"
-              f" plain {kern['pyramid_plain_ms']:.4f} ms; per call kernel"
-              f" {kern['pyramid_call_ms']:.4f} ms, plain {kern['pyramid_plain_call_ms']:.4f} ms;"
-              f" bound {kern['pyramid_bound_ms'] * 1e3:.3f} us ({kern['bound_by']}),"
-              f" max_abs_err {kern['max_abs_err']:.3g}")
+              f"| 8-level pyramid of one image, one launch: device {kern['ms'] * 1e3:.3f} us,"
+              f" per call {kern['ms_call'] * 1e3:.3f} us, plain {kern['plain_ms']:.3f} ms;"
+              f" bound {kern['bound_ms'] * 1e3:.3f} us by {kern['bound_by']} (bytes"
+              f" {kern['bytes_ms'] * 1e3:.3f} us, operations {kern['ops_ms'] * 1e3:.3f} us)"
+              f" | earlier, one launch per level ({EARLIER_COMMIT[:7]}, {EARLIER_CARD}):"
+              f" device {EARLIER_PYRAMID_US} us, per call {EARLIER_PYRAMID_CALL_MS} ms"
+              f" | {ptxas}")
 
     t0 = time.perf_counter()
     sl = phase_slice(world)
@@ -353,10 +409,10 @@ def main() -> int:
         "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES,
         "launches": sl["launches"],
-        "max_abs_err": kern["max_abs_err"],
-        "ms": kern["pyramid_ms"],
-        "plain_ms": kern["pyramid_plain_ms"],
-        "bound_ms": kern["pyramid_bound_ms"],
+        "max_abs_err": max(r["err"] for r in rows),
+        "ms": kern["ms"],
+        "plain_ms": kern["plain_ms"],
+        "bound_ms": kern["bound_ms"],
         "bound_by": kern["bound_by"],
         "library_ms": None,
     }]}), flush=True)

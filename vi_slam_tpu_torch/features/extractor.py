@@ -1,17 +1,19 @@
 """ORB extraction: pyramid -> FAST -> orientation -> rBRIEF — a PyTorch
 copy of the JAX package's `features/extractor.py::OrbExtractor`.
 
-Per level, the FAST-9 response map comes from `ops/fast_kernel.resp_pref`:
-the CUDA kernel for a CUDA image, the plain version for a CPU image. The
-per-keypoint work then runs once for all levels over a vertical "atlas"
-of the levels separated by 21 zero rows, as in the reference. All outputs
-have a fixed capacity (`n_features`) with a validity mask.
+The per-cell FAST-9 winners of all levels come from one call of
+`ops/fast_kernel.pyramid_resp_cells`: one CUDA kernel launch for a CUDA
+image, the plain version for a CPU image; the top-k per level follows.
+The per-keypoint work then runs once for all levels over a vertical
+"atlas" of the levels separated by 21 zero rows, as in the reference. All
+outputs have a fixed capacity (`n_features`) with a validity mask.
 """
 
 from __future__ import annotations
 
 from typing import List, NamedTuple
 
+import numpy as np
 import torch
 
 from vi_slam_tpu_torch.ops import fast as fast_ops
@@ -71,6 +73,19 @@ def atlas_row_offsets(shapes, budgets) -> List[int]:
     return offs
 
 
+class _Selection(NamedTuple):
+    """Constants of the keypoint selection over the levels with a budget:
+    per cell of the pyramid (`fast_ops.level_picks`), and per keypoint
+    slot (K = the sum of the levels' top-k)."""
+
+    level_of_cell: torch.Tensor  # (n_cells,) int64, index into `used`
+    picks: torch.Tensor  # (K,) int64
+    level: torch.Tensor  # (K,) int32 pyramid level
+    scale: torch.Tensor  # (K, 1) float32 level -> level-0 coordinates
+    limit: torch.Tensor  # (K, 2) float32 (w, h) - margin: x, y must lie below
+    atlas_offset: torch.Tensor  # (K, 2) float32 (0, the level's first atlas row)
+
+
 class OrbExtractor:
     """ORB extraction for one image geometry on one device."""
 
@@ -83,8 +98,10 @@ class OrbExtractor:
         self.scales = pyr_ops.scale_factors(cfg.n_levels, cfg.scale_factor)
         self.budgets = level_budgets(cfg.n_features, cfg.n_levels, cfg.scale_factor)
         self.row_offsets = atlas_row_offsets(self.shapes, self.budgets)
+        self.used = [l for l in range(cfg.n_levels) if self.budgets[l] > 0]
         self._stencils = None
         self._pyr_weights = None
+        self._selection = None
 
     def stencils(self) -> torch.Tensor:
         """The rBRIEF stencil matrix on this extractor's device, made on
@@ -102,6 +119,34 @@ class OrbExtractor:
             )
         return self._pyr_weights
 
+    def selection(self) -> _Selection:
+        """The per-cell and per-keypoint constants of the selection on this
+        extractor's device, made on first use."""
+        if self._selection is None:
+            counts = fast_kernel.tile_list(
+                tuple(self.shapes[l] for l in self.used), self.cfg.cell_size
+            ).count
+            ks = [min(self.budgets[l], n) for l, n in zip(self.used, counts)]
+            level_of_cell, picks = fast_ops.level_picks(counts, ks, self.device)
+            margin = orb_ops._PATCH_C + 2
+            kp = np.repeat(np.arange(len(ks)), ks)
+            used = np.asarray(self.used)[kp]
+            hw = np.asarray(self.shapes, dtype=np.float32)[used]
+            rows = np.asarray(self.row_offsets, dtype=np.float32)[used]
+
+            def dev(a):
+                return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+            self._selection = _Selection(
+                level_of_cell=level_of_cell,
+                picks=picks,
+                level=dev(used.astype(np.int32)),
+                scale=dev(self.scales[used][:, None]),
+                limit=dev(hw[:, ::-1] - margin),
+                atlas_offset=dev(np.stack([np.zeros_like(rows), rows], axis=-1)),
+            )
+        return self._selection
+
     def __call__(self, image: torch.Tensor) -> Features:
         return self.extract(image)[0]
 
@@ -113,44 +158,33 @@ class OrbExtractor:
         levels = pyr_ops.build_pyramid(
             image, cfg.n_levels, cfg.scale_factor, self.pyramid_weights()
         )
-        xs, ys, lv, sc, va, atlas_rows, atlas_xy = [], [], [], [], [], [], []
-        row = 0
-        for l, img in enumerate(levels):
-            budget = self.budgets[l]
-            if budget <= 0:
-                continue
-            pref = fast_kernel.resp_pref(img, cfg.fast_threshold, cfg.fast_min_threshold)
-            xy, score, valid = fast_ops.select_keypoints(pref, cfg.cell_size, budget)
-            h, w = img.shape
-            margin = orb_ops._PATCH_C + 2
-            inb = (
-                (xy[:, 0] >= margin) & (xy[:, 0] < w - margin)
-                & (xy[:, 1] >= margin) & (xy[:, 1] < h - margin)
-            )
-            valid = valid & inb
-            s = float(self.scales[l])
-            xs.append(xy[:, 0] * s)
-            ys.append(xy[:, 1] * s)
-            lv.append(torch.full((xy.shape[0],), l, dtype=torch.int32, device=img.device))
-            sc.append(score)
-            va.append(valid)
-            atlas_xy.append(xy + torch.tensor([0.0, row], dtype=torch.float32, device=img.device))
-            atlas_rows.append(torch.nn.functional.pad(img, (0, W - w, 0, SEP)))
-            row += h + SEP
-
+        sel = self.selection()
+        pc = fast_kernel.pyramid_resp_cells(
+            [levels[l] for l in self.used], cfg.fast_threshold, cfg.fast_min_threshold,
+            cfg.cell_size,
+        )
+        xy, score, valid = fast_ops.select_from_level_cells(
+            pc.score, pc.xy[0], pc.xy[1], sel.level_of_cell, sel.picks
+        )
+        margin = orb_ops._PATCH_C + 2
+        valid = valid & torch.all((xy >= margin) & (xy < sel.limit), dim=-1)
+        atlas_rows = [
+            torch.nn.functional.pad(levels[l], (0, W - levels[l].shape[1], 0, SEP))
+            for l in self.used
+        ]
         atlas = torch.cat(atlas_rows, dim=0)
-        xy_atlas = torch.cat(atlas_xy, dim=0)
+        xy_atlas = xy + sel.atlas_offset
         angle = orb_ops.orientations(atlas, xy_atlas)
         desc = orb_ops.describe_patches(
             pyr_ops.gaussian_blur(atlas), xy_atlas, angle, self.stencils()
         )
         feats = Features(
-            xy=torch.stack([torch.cat(xs), torch.cat(ys)], dim=-1),
-            level=torch.cat(lv),
+            xy=xy * sel.scale,
+            level=sel.level,
             angle=angle,
-            score=torch.cat(sc),
+            score=score,
             desc=desc,
-            valid=torch.cat(va),
+            valid=valid,
         )
         cap = cfg.n_features
         n = feats.xy.shape[0]

@@ -94,13 +94,6 @@ def build() -> BuildResult:
 
 @functools.lru_cache(maxsize=1)
 def load_library() -> ctypes.CDLL:
-    """Build (once per process) and load the kernel library, with the
-    argument types of every exported launcher declared."""
-    lib = ctypes.CDLL(str(build().path))
-    fn = lib.fast_resp_pref_launch
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
-    return lib
+    """Build (once per process) and load the kernel library. Each wrapper
+    declares the argument types of the launcher it calls."""
+    return ctypes.CDLL(str(build().path))

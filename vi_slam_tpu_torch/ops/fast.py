@@ -1,11 +1,11 @@
 """FAST-9 corner response, 3x3 NMS and grid selection — the plain PyTorch
 version of the JAX package's `ops/fast.py`.
 
-`resp_pref` is the plain version of the CUDA kernel in
-`csrc/fast_resp_pref.cu` (wrapper: `ops/fast_kernel.py`): the CPU path
-runs it, and the GPU check holds the kernel to it. It sums each arc's
-threshold excess in the same order as the kernel, so the two agree bit
-for bit.
+`resp_pref` and `cell_max`, level by level, are the plain version of the
+CUDA kernel in `csrc/fast_resp_pref.cu` (wrapper: `ops/fast_kernel.py`):
+the CPU path runs them, and the GPU check holds the kernel to them.
+`resp_pref` sums each arc's threshold excess in the same order as the
+kernel, so the two agree bit for bit.
 """
 
 from __future__ import annotations
@@ -127,15 +127,50 @@ def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
-def select_keypoints(
-    pref: torch.Tensor, cell: int, top_k_: int
+def select_from_cells(
+    score: torch.Tensor, x: torch.Tensor, y: torch.Tensor, top_k_: int
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Per-cell winner + global top-K: (xy (K, 2) float32 level coords,
-    score (K,), valid (K,) bool)."""
-    score, x, y = cell_max(pref, cell)
+    """Global top-K over the per-cell winners: (xy (K, 2) float32 level
+    coords, score (K,), valid (K,) bool)."""
     k = min(top_k_, score.shape[0])
     top_scores, top_idx = top_k(score, k)
     valid = top_scores > 0.0
     xy = torch.stack([x[top_idx].to(torch.float32), y[top_idx].to(torch.float32)], dim=-1)
     true_score = torch.where(top_scores >= 1e4, top_scores - 1e4, top_scores)
     return xy, true_score, valid
+
+
+def level_picks(counts, ks, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """For `select_from_level_cells`: the level of each cell of levels
+    whose cells lie one level after another (`counts[l]` each), and the
+    positions of each level's top `ks[l]` (at most `counts[l]`) in the
+    cells sorted by level, then by score."""
+    level = np.repeat(np.arange(len(counts)), counts)
+    first = np.cumsum([0] + list(counts[:-1]))
+    picks = np.concatenate([f + np.arange(k) for f, k in zip(first, ks)])
+    return (torch.from_numpy(level).to(device), torch.from_numpy(picks.astype(np.int64)).to(device))
+
+
+def select_from_level_cells(
+    score: torch.Tensor, x: torch.Tensor, y: torch.Tensor, level: torch.Tensor,
+    picks: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`select_from_cells` of every level at once, concatenated: `score`,
+    `x`, `y` hold the cells of all levels, one level after another;
+    `level` and `picks` come from `level_picks`. One stable sort by score,
+    then one by level, orders each level's cells as its own sort would."""
+    order = torch.sort(score, descending=True, stable=True).indices
+    order = order[torch.sort(level[order], stable=True).indices][picks]
+    top_scores = score[order]
+    valid = top_scores > 0.0
+    xy = torch.stack([x[order].to(torch.float32), y[order].to(torch.float32)], dim=-1)
+    true_score = torch.where(top_scores >= 1e4, top_scores - 1e4, top_scores)
+    return xy, true_score, valid
+
+
+def select_keypoints(
+    pref: torch.Tensor, cell: int, top_k_: int
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Per-cell winner + global top-K: (xy (K, 2) float32 level coords,
+    score (K,), valid (K,) bool)."""
+    return select_from_cells(*cell_max(pref, cell), top_k_)
