@@ -1,9 +1,14 @@
 """GPU smoke test of the PyTorch port (`vi_slam_tpu_torch`) on one card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --ate [--perturb SEED ...] [--flush-at N]
+
+The second form is not the check: it runs the full phase's loop alone,
+unperturbed and once per seed with 20 pixels of each left image moved by
+one grey level, and prints one JSON line a run (the port's ATE spread).
 
 Needs one CUDA card, `nvcc` and `nvidia-smi`; imports nothing of JAX or of
-the JAX package. It runs four phases in order and prints one line per
+the JAX package. It runs five phases in order and prints one line per
 phase with its seconds, flushed as the phase ends:
 
   device  the card's name and `nvidia-smi` name and power limit;
@@ -24,16 +29,31 @@ phase with its seconds, flushed as the phase ends:
           and ptxas's registers and shared memory;
   slice   the tracking frame loop (`make_stereo_vo` ->
           `process_stereo`) over 100 rendered KITTI-00-sized frames on
-          "cuda", after a 10-frame warm pass: steady frames/s, ATE, lost
-          frames, keyframes, map points and the kernel's launch count,
-          which must be 2 per frame processed (one per image pyramid).
-          ATE must be within max(1 cm, 20 %) of the JAX reference's ATE
-          on the same frames.
+          "cuda", with the keyframe-rate programs off, after a 10-frame
+          warm pass: steady frames/s, ATE, lost frames, keyframes, map
+          points and the kernel's launch count, which must be 2 per frame
+          processed (one per image pyramid). ATE must be within max(1 cm,
+          20 %) of the JAX reference's ATE on the same frames;
+  full    bench.py's configuration end to end: the same loop with the
+          mapping pass every 2nd keyframe, local BA every 3rd and
+          maintenance every 8th, over the 200 frames of bench.py's world,
+          after the same warm pass. It fails on a lost frame, a trajectory
+          that is not finite, an ATE further than max(1 cm, 20 %) from the
+          JAX reference's ATE on the same frames with the same drain
+          before frame 10, a launch count other than 2 per frame, or a
+          program (mapping, local BA, maintenance) that ran no time. (No
+          keyframe of this world is redundant enough to be culled, in the
+          reference or the port; a real cull runs in the CPU tests.) It
+          prints ATE, lost
+          frames, keyframes, map points, culled keyframes beside the
+          reference's, the runs of each program, steady frames/s and the
+          host ms of each program.
 
 Any failure raises and the script exits non-zero with the traceback. On
 success it prints the `nvidia-smi` line, a JSON line of per-kernel
-measurements ("ms", "plain_ms" and "bound_ms" are device times for the
-8-level left pyramid of frame 0), and last a JSON line
+measurements ("launches" is the full phase's count; "ms", "plain_ms" and
+"bound_ms" are device times for the 8-level left pyramid of frame 0), and
+last a JSON line
 {"ok": true, "device": {...}}.
 """
 
@@ -49,9 +69,22 @@ import numpy as np
 
 # The JAX reference's ATE on the slice world, on the host CPU with x64
 # off: `python tools/slice_reference_ate.py` at commit 3ae1616 gave
-# 3.004895313875399 cm with 0 lost frames. An accuracy figure, not a speed.
+# 3.004895313875399 cm with 0 lost frames; with `--flush-at 10`, as the
+# smoke drains the pipeline, the same at 917b768. An accuracy figure, not a
+# speed.
 REF_ATE_CM = 3.004895313875399
 REF_ATE_COMMIT = "3ae1616da44f970b81e3b9d63fc47b9c82ced020"
+
+# The same for the full phase: `python tools/slice_reference_ate.py
+# --bench-cadences --frames 200 --flush-at 10` at commit 917b768 (an
+# accuracy figure, not a speed). The pipeline is drained before frame 10,
+# as run_loop drains it before its steady clock (and bench.py after its
+# warm-up): the drain changes which results the lagged host decisions see,
+# so it is part of the configuration. The reference culls no keyframe in
+# these 200 frames.
+REF_FULL = dict(ate_cm=7.529685106552717, lost=0, keyframes=173, map_points=38112,
+                culled_keyframes=0)
+REF_FULL_COMMIT = "917b76847761432cf82235f5d92bce1e6e58c6d1"
 
 # KITTI-00 stereo geometry and the slice world (bench.py's).
 W, H = 1241, 376
@@ -59,6 +92,7 @@ FX = FY = 718.856
 CX, CY = 607.1928, 185.2157
 BF = 386.1448
 N_FRAMES = 100
+N_FULL_FRAMES = 200  # bench.py's --frames default
 N_WARM = 10
 NEVER = 10 ** 9  # a keyframe cadence no run reaches
 
@@ -80,13 +114,17 @@ def log_phase(name: str, t0: float, detail: str = "") -> None:
     print(f"phase {name}: {time.perf_counter() - t0:.2f} s {detail}".rstrip(), flush=True)
 
 
-def slice_config():
-    """bench.py's configuration with the keyframe-rate programs (mapping,
-    local BA, maintenance) set beyond the run's length."""
+def slice_config(bench_cadences: bool = False):
+    """bench.py's configuration; the keyframe-rate programs (mapping, local
+    BA, maintenance) set beyond the run's length unless `bench_cadences`,
+    which gives bench.py's: every 2nd, 3rd and 8th keyframe."""
     from vi_slam_tpu_torch.utils.config import (
         BAConfig, CameraConfig, ExtractorConfig, MapConfig, SystemConfig,
         TrackerConfig,
     )
+
+    every = dict(maintenance_every=8, local_ba_every=3, mapping_every=2) if bench_cadences \
+        else dict(maintenance_every=NEVER, local_ba_every=NEVER, mapping_every=NEVER)
 
     return SystemConfig(
         camera=CameraConfig(width=W, height=H, fx=FX, fy=FY, cx=CX, cy=CY,
@@ -95,9 +133,7 @@ def slice_config():
         ba=BAConfig(max_local_kfs=6, max_local_points=2048,
                     local_ba_iters=2, mapping_fuse_window=1),
         map=MapConfig(max_keyframes=256, max_points=65536, max_obs_per_point=8),
-        tracker=TrackerConfig(min_frames_between_kf=1, pipeline_depth=3,
-                              maintenance_every=NEVER, local_ba_every=NEVER,
-                              mapping_every=NEVER),
+        tracker=TrackerConfig(min_frames_between_kf=1, pipeline_depth=3, **every),
     )
 
 
@@ -287,16 +323,37 @@ def phase_kernel(extractor_cfg, world):
     return rows
 
 
-def phase_slice(world):
-    """The tracking loop on the card over the slice world."""
+def perturb_frames(frames, seed):
+    """Move 20 random pixels of every left image by one grey level, drawn
+    from `seed` frame by frame, as `tools/slice_reference_ate.py --perturb`
+    does for the reference."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for imgL, imgR in frames:
+        imgL = np.array(imgL, np.float32)
+        idx = rng.integers(0, imgL.size, 20)
+        imgL.flat[idx] = np.clip(imgL.flat[idx] + rng.choice([-1.0, 1.0], 20), 0, 255)
+        out.append((imgL, imgR))
+    return out
+
+
+def run_loop(cfg, world, n_frames, perturb=None, flush_at=N_WARM):
+    """Render `n_frames` of `world` (perturbed by `perturb_frames` when
+    `perturb` is a seed), warm a StereoVO up on the first N_WARM, then
+    drive a fresh one over all of them with the kernel's launch count set
+    to 0 just before (the warm pass included) and read just after. The
+    pipeline is drained before frame `flush_at` (None: never; bench.py
+    drains it where its steady clock starts, as the default does here).
+    Returns the StereoVO and the run's numbers."""
     import torch
     from vi_slam_tpu_torch.io import evaluation
     from vi_slam_tpu_torch.ops import fast_kernel
     from vi_slam_tpu_torch.pipeline.stereo_vo import make_stereo_vo
 
-    cfg = slice_config()
     t_render = time.perf_counter()
-    frames = render_frames(world, N_FRAMES)
+    frames = render_frames(world, n_frames)
+    if perturb is not None:
+        frames = perturb_frames(frames, perturb)
     render_s = time.perf_counter() - t_render
 
     fast_kernel.reset_launches()
@@ -308,8 +365,9 @@ def phase_slice(world):
     t_all = time.perf_counter()
     t_steady = None
     for i, (imgL, imgR) in enumerate(frames):
-        if i == N_WARM:
+        if i == flush_at:
             vo.flush()
+        if i == N_WARM:
             torch.cuda.synchronize()
             t_steady = time.perf_counter()
         vo.process_stereo(imgL, imgR, i * 0.1)
@@ -318,28 +376,23 @@ def phase_slice(world):
     t_end = time.perf_counter()
     launches = fast_kernel.launches
 
-    frames_done = N_WARM + N_FRAMES
+    frames_done = N_WARM + n_frames
     if launches <= 0 or launches != 2 * frames_done:
         raise AssertionError(
             f"fast_resp_pref launched {launches} times for {frames_done} frames,"
             f" expected {2 * frames_done} (one per image pyramid)"
         )
     est = vo.trajectory_wc()
-    ate_cm = evaluation.ate_rmse(est[:, :3, 3], world.poses_wc[:, :3, 3])["rmse"] * 100.0
-    lost = sum(1 for r in vo.records if r.state != "OK")
-    if not np.all(np.isfinite(est)) or est.shape != (N_FRAMES, 4, 4):
+    if not np.all(np.isfinite(est)) or est.shape != (n_frames, 4, 4):
         raise AssertionError(f"trajectory not finite or of shape {est.shape}")
+    lost = sum(1 for r in vo.records if r.state != "OK")
     if lost != 0:
         raise AssertionError(f"{lost} frames not tracked")
-    tol_cm = max(1.0, 0.2 * REF_ATE_CM)
-    if abs(ate_cm - REF_ATE_CM) > tol_cm:
-        raise AssertionError(
-            f"ATE {ate_cm:.4f} cm vs reference {REF_ATE_CM:.4f} cm (tolerance {tol_cm:.4f} cm)"
-        )
-    return {
+    ate_cm = evaluation.ate_rmse(est[:, :3, 3], world.poses_wc[:n_frames, :3, 3])["rmse"] * 100.0
+    return vo, {
         "render_s": render_s,
-        "steady_fps": (N_FRAMES - N_WARM) / (t_end - t_steady),
-        "all_fps": N_FRAMES / (t_end - t_all),
+        "steady_fps": (n_frames - N_WARM) / (t_end - t_steady),
+        "all_fps": n_frames / (t_end - t_all),
         "ate_cm": ate_cm,
         "lost": lost,
         "keyframes": vo.n_kf,
@@ -349,13 +402,84 @@ def phase_slice(world):
     }
 
 
-def main() -> int:
+def phase_slice(world):
+    """The tracking loop on the card over the slice world, the
+    keyframe-rate programs off."""
+    _, sl = run_loop(slice_config(), world, N_FRAMES)
+    tol_cm = max(1.0, 0.2 * REF_ATE_CM)
+    if abs(sl["ate_cm"] - REF_ATE_CM) > tol_cm:
+        raise AssertionError(
+            f"ATE {sl['ate_cm']:.4f} cm vs reference {REF_ATE_CM:.4f} cm (tolerance {tol_cm:.4f} cm)"
+        )
+    return sl
+
+
+def full_world():
+    from vi_slam_tpu_torch.io import synthetic
+
+    return synthetic.make_billboard_world(n_frames=N_FULL_FRAMES, n_boards=4000, seed=11,
+                                          speed=1.0)
+
+
+def phase_full():
+    """bench.py's configuration end to end over bench.py's 200-frame world."""
+    vo, full = run_loop(slice_config(bench_cadences=True), full_world(), N_FULL_FRAMES)
+    tol_cm = max(1.0, 0.2 * REF_FULL["ate_cm"])
+    if abs(full["ate_cm"] - REF_FULL["ate_cm"]) > tol_cm:
+        raise AssertionError(
+            f"ATE {full['ate_cm']:.4f} cm vs reference {REF_FULL['ate_cm']:.4f} cm"
+            f" (tolerance {tol_cm:.4f} cm)")
+    runs = dict(vo.program_runs)
+    idle = [name for name, n in runs.items() if n <= 0]
+    if idle:
+        raise AssertionError(f"programs that ran no time: {idle} (runs {runs})")
+    full["runs"] = runs
+    full["host_ms"] = {k: v * 1e3 for k, v in vo.program_host_s.items()}
+    full["culled_keyframes"] = len(vo.culled_parent)
+    return full
+
+
+def ate_runs(seeds, flush_at) -> None:
+    """The full phase's loop alone, unperturbed and once per perturbation
+    seed, with the pipeline drained before frame `flush_at` (None: never);
+    one JSON line a run, for the spread of the port's ATE beside the
+    reference's (`tools/slice_reference_ate.py --perturb SEED`)."""
+    import torch
+    from vi_slam_tpu_torch.kernels import build as kbuild
+
+    kbuild.build()
+    kbuild.load_library()
+    world, cfg = full_world(), slice_config(bench_cadences=True)
+    for seed in [None] + list(seeds):
+        vo, r = run_loop(cfg, world, N_FULL_FRAMES, perturb=seed, flush_at=flush_at)
+        print(json.dumps({
+            "perturb": seed, "flush_at": flush_at, "ate_cm": r["ate_cm"], "lost": r["lost"],
+            "keyframes": r["keyframes"], "map_points": r["map_points"],
+            "culled_keyframes": len(vo.culled_parent), "runs": vo.program_runs,
+            "steady_fps": r["steady_fps"], "device": torch.cuda.get_device_name(0),
+        }), flush=True)
+
+
+def main(argv) -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--ate", action="store_true",
+                    help="run only the full phase's loop and print its ATE (not the check)")
+    ap.add_argument("--perturb", type=int, nargs="*", default=[], metavar="SEED",
+                    help="with --ate: also one run per seed, one grey level moved")
+    ap.add_argument("--flush-at", type=int, default=N_WARM, metavar="N",
+                    help="with --ate: drain the pipeline before frame N (-1: never)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke test needs a GPU",
               file=sys.stderr)
         return 1
+    if args.ate:
+        ate_runs(args.perturb, None if args.flush_at < 0 else args.flush_at)
+        return 0
     from vi_slam_tpu_torch.io import synthetic
     from vi_slam_tpu_torch.kernels import build as kbuild
     from vi_slam_tpu_torch.utils.device import resolve_device
@@ -400,6 +524,25 @@ def main() -> int:
               f" (reference {REF_ATE_CM:.4f} cm at {REF_ATE_COMMIT[:7]}) | lost {sl['lost']}"
               f" | keyframes {sl['keyframes']} | map points {sl['map_points']}"
               f" | fast_resp_pref launches {sl['launches']} for {sl['frames']} frames")
+
+    t0 = time.perf_counter()
+    full = phase_full()
+    runs, host = full["runs"], full["host_ms"]
+    per_run = ", ".join(
+        f"{k} {host[k]:.1f} ms ({host[k] / runs[k]:.2f} ms a run)" for k in host)
+    log_phase("full", t0,
+              f"| render {full['render_s']:.1f} s | steady {full['steady_fps']:.3f} frames/s"
+              f" (all {full['all_fps']:.3f}) | ATE {full['ate_cm']:.4f} cm (reference"
+              f" {REF_FULL['ate_cm']:.4f} cm at {REF_FULL_COMMIT[:7]}, tolerance"
+              f" {max(1.0, 0.2 * REF_FULL['ate_cm']):.4f} cm) | lost {full['lost']}"
+              f" of {N_FULL_FRAMES} | keyframes {full['keyframes']} (reference"
+              f" {REF_FULL['keyframes']}) | map points {full['map_points']} (reference"
+              f" {REF_FULL['map_points']}) | culled keyframes {full['culled_keyframes']}"
+              f" (reference {REF_FULL['culled_keyframes']}) | runs: mapping"
+              f" {runs['mapping']}, local BA {runs['local_ba']}, maintenance"
+              f" {runs['maintenance']}"
+              f" | host: {per_run} | fast_resp_pref launches {full['launches']} for"
+              f" {full['frames']} frames")
     print(f"total: {time.perf_counter() - t_start:.2f} s", flush=True)
 
     print(smi, flush=True)
@@ -408,7 +551,7 @@ def main() -> int:
         "route": "cuda",
         "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES,
-        "launches": sl["launches"],
+        "launches": full["launches"],
         "max_abs_err": max(r["err"] for r in rows),
         "ms": kern["ms"],
         "plain_ms": kern["plain_ms"],
@@ -423,4 +566,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -171,7 +171,7 @@ def test_descriptors_match_outside_flat_pairs(ref_extract):
 def test_extractor_matches(pair, ref_extract):
     left, _, _ = pair
     _, fL, aL, _, _ = ref_extract
-    ext = OrbExtractor(ExtractorConfig(n_features=512), left.shape[0], left.shape[1])
+    ext = OrbExtractor(ExtractorConfig(n_features=512), left.shape[0], left.shape[1], device="cpu")
     feats, atlas = ext.extract(torch.from_numpy(left))
     got = [_to_np(x) for x in feats]
     for name in ("xy", "level", "valid"):
@@ -188,7 +188,7 @@ def test_extractor_matches(pair, ref_extract):
 
 
 def test_flat_image_has_no_keypoints():
-    ext = OrbExtractor(ExtractorConfig(n_features=512, cell_size=16), 192, 256)
+    ext = OrbExtractor(ExtractorConfig(n_features=512, cell_size=16), 192, 256, device="cpu")
     feats = ext(torch.zeros((192, 256)))
     assert int(feats.valid.sum()) == 0
 
@@ -239,7 +239,7 @@ def test_port_stereo_recovers_disparity(pair):
     """The cases of test_stereo_scanline_recovers_disparity, on the port
     end to end."""
     left, right, D = pair
-    ext = OrbExtractor(ExtractorConfig(n_features=512), left.shape[0], left.shape[1])
+    ext = OrbExtractor(ExtractorConfig(n_features=512), left.shape[0], left.shape[1], device="cpu")
     fL, aL = ext.extract(torch.from_numpy(left))
     fR, aR = ext.extract(torch.from_numpy(right))
     sm = stereo.match_stereo(
@@ -251,3 +251,19 @@ def test_port_stereo_recovers_disparity(pair):
     assert ok.sum() > 25, ok.sum()
     assert abs(float(np.median(disp)) - D) < 0.75
     assert float(np.mean(np.abs(disp - D) < 1.5)) > 0.8
+
+
+def test_extractor_and_map_default_to_the_card(monkeypatch):
+    """Entry points run on the card unless the caller asks for the CPU:
+    without a device argument the extractor and a map made from the
+    reference's arrays ask for CUDA, and raise where there is none."""
+    from vi_slam_tpu_torch.slam_map import state as map_state
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        OrbExtractor(ExtractorConfig(n_features=64), 64, 96)
+    arrays = map_state.map_state_to_numpy(map_state.allocate(2, 4, 8, 2))
+    with pytest.raises(RuntimeError, match="cuda"):
+        map_state.map_state_from_numpy(arrays)
+    assert OrbExtractor(ExtractorConfig(n_features=64), 64, 96, device="cpu").device.type == "cpu"
+    assert map_state.map_state_from_numpy(arrays, device="cpu").kf_mp.device.type == "cpu"

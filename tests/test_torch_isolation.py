@@ -76,4 +76,4 @@ def test_port_imports_without_jax():
         capture_output=True, text=True, timeout=120,
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 20
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 25

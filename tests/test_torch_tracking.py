@@ -381,7 +381,7 @@ def carried():
 
 def test_map_round_trip(carried):
     before, _, _, _, _, _ = carried
-    back = map_state.map_state_to_numpy(map_state.map_state_from_numpy(before))
+    back = map_state.map_state_to_numpy(map_state.map_state_from_numpy(before, device="cpu"))
     for name in before:
         assert back[name].dtype == before[name].dtype, name
         np.testing.assert_array_equal(back[name], before[name], err_msg=name)
@@ -390,7 +390,7 @@ def test_map_round_trip(carried):
 def test_insert_create_update_match(carried):
     before, after, kin, cin, ids, upd = carried
     f, ur, dp, mp_ids, xi = kin
-    ms = map_state.map_state_from_numpy(before)
+    ms = map_state.map_state_from_numpy(before, device="cpu")
     ms = map_state.insert_keyframe(ms, 4, se3.exp(T(xi)), 9, 0.9, _port_feats(f), T(ur), T(dp), T(mp_ids))
     cin = list(cin)
     cin[2] = cin[2].view(np.int32)
@@ -414,7 +414,7 @@ def test_covisibility_and_window_match(carried, ref_slot):
         cov_r = np.asarray(ref_state.covisibility_row(ms_r, ref_slot))
         win_r = np.asarray(ref_steps.covis_window(ms_r, jnp.int32(ref_slot), 4))
         ids_r, mask_r = [np.asarray(a) for a in ref_steps.gather_local_points(ms_r, J(win_r), 96)]
-    ms = map_state.map_state_from_numpy(after)
+    ms = map_state.map_state_from_numpy(after, device="cpu")
     np.testing.assert_array_equal(N(map_state.covisibility_row(ms, ref_slot)), cov_r)
     win = steps.covis_window(ms, torch.tensor(ref_slot), 4)
     np.testing.assert_array_equal(N(win), win_r)
@@ -431,7 +431,7 @@ def test_gather_local_points_priority_with_point_zero():
         ms_r = ms_r._replace(kf_mp=ms_r.kf_mp.at[0].set(jnp.asarray([0, 5, -1, 7, -1, 3]))
                              .at[1].set(jnp.asarray([9, 0, 11, -1, 12, 13])))
         want = [np.asarray(a) for a in ref_steps.gather_local_points(ms_r, J(np.array([0, 1], np.int32)), 5)]
-    ms = map_state.map_state_from_numpy({k: np.asarray(v) for k, v in zip(ms_r._fields, ms_r)})
+    ms = map_state.map_state_from_numpy({k: np.asarray(v) for k, v in zip(ms_r._fields, ms_r)}, device="cpu")
     got = [N(a) for a in steps.gather_local_points(ms, T(np.array([0, 1], np.int32)), 5)]
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
@@ -454,7 +454,7 @@ def test_project_match_and_pose_obs_match(carried):
         obs_r, kp_r = ref_steps.build_pose_obs(proj_r, m_r, RefFeatures(*map(J, f)), J(ur))
         mm_r = ref_steps.scatter_matches_to_kps(NF, kp_r, ids_r, m_r.ok & proj_r.valid)
         want = [np.asarray(a) for a in list(proj_r) + list(m_r) + list(obs_r) + [kp_r, mm_r]]
-    ms = map_state.map_state_from_numpy(after)
+    ms = map_state.map_state_from_numpy(after, device="cpu")
     ids, mask = steps.gather_local_points(ms, T(np.array([4, 3, 2, -1], np.int32)), 128)
     pc = CameraParams.make(300.0, 300.0, 160.0, 120.0, bf=50.0)
     proj = steps.project_local_points(pc, ms, ids, mask, se3.exp(T(xi)), 320, 240)

@@ -1,23 +1,41 @@
-"""Where the PyTorch port's ORB frontend differs from the JAX package's, on
-one rendered KITTI-00-sized frame (the slice world's frame 0), on the CPU.
+"""Where the PyTorch port's main path departs from the JAX package's, on the
+CPU, over the smoke's cadence-off slice world (KITTI-00-sized rendered
+frames, bench.py's configuration, mapping, local BA and maintenance off),
+or with `--bench-cadences` over the full phase's world with bench.py's
+cadences.
 
-Prints one JSON line with:
-  * pyramid: max |port - reference| per level (grey levels);
-  * keypoints: per level, the number of keypoint slots whose (x, y) or
-    validity differ;
-  * descriptors: over valid keypoints the reference and the port share
-    (same position and level), the number of descriptor bits that differ,
-    the number of pair differences below 1e-4 in magnitude ("flat pairs"),
-    and the largest |pair difference| (float64) among the differing bits.
+Runs three StereoVOs side by side, frame by frame:
+  * ref: the JAX package's (x64 off);
+  * own: the port on device="cpu", extracting its own features;
+  * fed: the port on device="cpu", fed the reference's features of each
+    frame (left keypoints and descriptors, right-image u and depth).
+and records, per frame, the keyframe decision, the inlier count and the
+map-point count. Prints one JSON line with:
+  * the first frame where own departs from ref, and the first where fed
+    does (null where it never does): a port fault shows in fed, a
+    difference of the features in own only;
+  * at own's first departing frame, what differs in that frame's
+    features: keypoint slots per level (levels >= 1 come from the
+    resampled pyramid, ROADMAP H6), descriptor bits of shared keypoints and
+    how many of them are flat pairs (ROADMAP H7), and stereo depths of
+    shared keypoints;
+  * frame 0's pyramid difference per level, and each run's final
+    keyframes, map points and ATE.
 
-    JAX_PLATFORMS=cpu python tools/torch_parity_report.py
+    JAX_PLATFORMS=cpu python tools/torch_parity_report.py [--frames 100]
+    JAX_PLATFORMS=cpu python tools/torch_parity_report.py --bench-cadences --frames 200
 """
 
+import argparse
+import dataclasses
 import json
 import os
 import sys
+import time
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+sys.path.insert(0, os.path.join(ROOT, "tools"))
 
 import jax  # noqa: E402
 
@@ -29,14 +47,16 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 import chip_smoke  # noqa: E402
-from vi_slam_tpu.features.extractor import OrbExtractor as RefExtractor  # noqa: E402
+from slice_reference_ate import slice_config as ref_slice_config  # noqa: E402
+from vi_slam_tpu.io import evaluation as ref_evaluation  # noqa: E402
 from vi_slam_tpu.ops import pyramid as ref_pyr  # noqa: E402
-from vi_slam_tpu.utils.config import ExtractorConfig as RefExtractorConfig  # noqa: E402
-from vi_slam_tpu_torch.features.extractor import OrbExtractor  # noqa: E402
+from vi_slam_tpu.pipeline.klt_vo import make_stereo_vo as ref_make_stereo_vo  # noqa: E402
+from vi_slam_tpu_torch.features.extractor import Features  # noqa: E402
 from vi_slam_tpu_torch.io import synthetic  # noqa: E402
 from vi_slam_tpu_torch.ops import orb  # noqa: E402
 from vi_slam_tpu_torch.ops import pyramid as pyr_ops  # noqa: E402
-from vi_slam_tpu_torch.utils.config import ExtractorConfig  # noqa: E402
+from vi_slam_tpu_torch.pipeline.stereo_vo import make_stereo_vo  # noqa: E402
+from vi_slam_tpu_torch.utils.config import config_from_dict  # noqa: E402
 
 
 def bits(words):
@@ -44,51 +64,193 @@ def bits(words):
     return ((w[..., None] >> np.arange(32)) & 1).reshape(*w.shape[:-1], 256)
 
 
-def main():
-    W, H = chip_smoke.W, chip_smoke.H
-    world = synthetic.make_billboard_world(n_frames=1, n_boards=4000, seed=11, speed=1.0)
-    left = chip_smoke.render_frames(world, 1)[0][0].astype(np.uint8).astype(np.float32)
-
-    ref_levels = [np.asarray(x) for x in jax.jit(ref_pyr.build_pyramid, static_argnums=(1, 2))(
-        jnp.asarray(left), 8, 1.2)]
-    ext = OrbExtractor(ExtractorConfig(n_features=2000), H, W)
-    port_levels = [x.numpy() for x in pyr_ops.build_pyramid(
-        torch.from_numpy(left), 8, 1.2, ext.pyramid_weights())]
-    pyr = [float(np.abs(a - b).max()) for a, b in zip(ref_levels, port_levels)]
-
-    rext = RefExtractor(RefExtractorConfig(n_features=2000), H, W)
-    rf, _ = rext._fn_atlas(jnp.asarray(left))
-    rf = [np.asarray(x) for x in rf]
-    pf, atlas = ext.extract(torch.from_numpy(left))
-    pf = [x.numpy() for x in pf]
+def feature_diff(ext, left, rf, pf, r_depth, p_depth):
+    """What differs between the reference's features `rf` and the port's
+    `pf` (lists of numpy arrays in Features order) of one left image."""
     kp_diff = []
-    for lv in range(8):
+    for lv in range(ext.cfg.n_levels):
         sl = rf[1] == lv
         differ = np.any(rf[0][sl] != pf[0][sl], axis=1) | (rf[5][sl] != pf[5][sl])
         kp_diff.append(int(differ.sum()))
     same = rf[5] & pf[5] & np.all(rf[0] == pf[0], axis=1) & (rf[1] == pf[1])
-
-    # float64 pair differences of the port's inputs, to locate flat pairs
+    # float64 pair differences of the port's inputs, to find flat pairs
     lv = pf[1]
     offs = np.asarray(ext.row_offsets)[lv]
     xy = np.round(np.stack([pf[0][:, 0] / ext.scales[lv],
                             pf[0][:, 1] / ext.scales[lv] + offs], -1)).astype(np.float32)
+    levels = pyr_ops.build_pyramid(torch.from_numpy(left), ext.cfg.n_levels,
+                                   ext.cfg.scale_factor, ext.pyramid_weights())
+    W = ext.width
+    atlas = torch.cat([torch.nn.functional.pad(levels[l], (0, W - levels[l].shape[1], 0,
+                                                           orb_atlas_sep()))
+                       for l in ext.used], dim=0)
     bl = pyr_ops.gaussian_blur(atlas).double()
     patches = orb.extract_patches(bl, torch.from_numpy(xy)).reshape(len(xy), -1)
     d = (patches @ torch.from_numpy(orb.stencil_matrix()).double()).reshape(len(xy), 32, 256)
     d = d[torch.arange(len(xy)), orb.angle_bins(torch.from_numpy(pf[2]))].numpy()
     flip = (bits(rf[4].view(np.int32)) != bits(pf[4]))[same]
     flat = (np.abs(d) < 1e-4)[same]
-    print(json.dumps({
-        "image": f"{W}x{H} slice world frame 0",
-        "pyramid_max_abs_diff": pyr,
+    depth_differs = same & (r_depth != p_depth)
+    one_side = depth_differs & ((r_depth > 0) != (p_depth > 0))
+    both = depth_differs & (r_depth > 0) & (p_depth > 0)
+    return {
         "keypoint_slots_differing_per_level": kp_diff,
         "shared_valid_keypoints": int(same.sum()),
         "descriptor_bits_compared": int(flip.size),
         "descriptor_bits_differing": int(flip.sum()),
         "flat_pairs": int(flat.sum()),
         "differing_bits_outside_flat_pairs": int((flip & ~flat).sum()),
-        "max_abs_pair_diff_at_differing_bits": float(np.abs(d[same][flip]).max()) if flip.any() else 0.0,
+        "max_abs_pair_diff_at_differing_bits":
+            float(np.abs(d[same][flip]).max()) if flip.any() else 0.0,
+        "shared_keypoints_with_other_stereo_depth": int(depth_differs.sum()),
+        "of_which_depth_on_one_side_only": int(one_side.sum()),
+        "max_abs_depth_diff_m_where_both_have_depth": float(
+            np.abs(r_depth - p_depth)[both].max()) if both.any() else 0.0,
+        "median_abs_depth_diff_m_where_both_have_depth": float(
+            np.median(np.abs(r_depth - p_depth)[both])) if both.any() else 0.0,
+    }
+
+
+def orb_atlas_sep():
+    from vi_slam_tpu_torch.features.extractor import ATLAS_SEP
+
+    return ATLAS_SEP
+
+
+def record_frames(vo, out):
+    """Wrap vo._finalize to record (frame, keyframes after, inliers, map
+    points) of each finalized frame."""
+    fin = vo._finalize
+
+    def wrapped(job):
+        st = fin(job)
+        out[job.frame_id] = (st.n_kfs, st.n_inliers, st.n_mps)
+        return st
+
+    vo._finalize = wrapped
+
+
+def first_departure(ref, other, n):
+    """First frame whose keyframe decision, inliers or map points differ."""
+    prev_r = prev_o = 0
+    for f in range(n):
+        r, o = ref.get(f), other.get(f)
+        if r is None or o is None:
+            continue
+        kf_r, kf_o = r[0] > prev_r, o[0] > prev_o
+        prev_r, prev_o = r[0], o[0]
+        diff = [name for name, a, b in (("keyframe", kf_r, kf_o), ("inliers", r[1], o[1]),
+                                        ("map_points", r[2], o[2])) if a != b]
+        if diff:
+            return {"frame": f, "differs": diff, "ref": [bool(kf_r), r[1], r[2]],
+                    "port": [bool(kf_o), o[1], o[2]]}
+    return None
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--frames", type=int, default=100)
+    ap.add_argument("--bench-cadences", action="store_true",
+                    help="bench.py's mapping/local-BA/maintenance cadences, over the"
+                         " full phase's 200-frame world")
+    args = ap.parse_args()
+    n = args.frames
+    t0 = time.time()
+    W, H = chip_smoke.W, chip_smoke.H
+    n_world = chip_smoke.N_FULL_FRAMES if args.bench_cadences else chip_smoke.N_FRAMES
+    world = synthetic.make_billboard_world(n_frames=n_world, n_boards=4000, seed=11, speed=1.0)
+    frames = chip_smoke.render_frames(world, n)
+    left0 = frames[0][0].astype(np.uint8).astype(np.float32)
+
+    ref_cfg = ref_slice_config(args.bench_cadences)
+    port_cfg = config_from_dict(dataclasses.asdict(ref_cfg))
+
+    # the reference, with the features of each frame captured
+    ref_feats, ref_stats = [], {}
+    ref = ref_make_stereo_vo(ref_cfg)
+    frame_fn, extract_fn = ref._frame_fn, ref._extract_pair_fn
+
+    def ref_frame(*a):
+        out = frame_fn(*a)
+        ref_feats.append(([np.array(x) for x in out[3]], np.array(out[4]), np.array(out[5])))
+        return out
+
+    def ref_extract(imgs):
+        out = extract_fn(imgs)
+        ref_feats.append(([np.array(x) for x in out[0]], np.array(out[1]), np.array(out[2])))
+        return out
+
+    ref._frame_fn, ref._extract_pair_fn = ref_frame, ref_extract
+    record_frames(ref, ref_stats)
+
+    own_feats, own_stats = [], {}
+    own = make_stereo_vo(port_cfg, device="cpu")
+    own_extract = own._extract_pair
+
+    def own_capture(imgs):
+        f, u, d = own_extract(imgs)
+        own_feats.append(([x.numpy().copy() for x in f], u.numpy().copy(), d.numpy().copy()))
+        return f, u, d
+
+    own._extract_pair = own_capture
+    record_frames(own, own_stats)
+
+    fed_stats = {}
+    fed = make_stereo_vo(port_cfg, device="cpu")
+    fed_queue = iter(ref_feats)
+
+    def fed_extract(imgs):
+        f, u, d = next(fed_queue)
+        f = list(f)
+        f[4] = f[4].view(np.int32)
+        return Features(*(torch.from_numpy(x) for x in f)), torch.from_numpy(u), torch.from_numpy(d)
+
+    fed._extract_pair = fed_extract
+    record_frames(fed, fed_stats)
+
+    for i, (imgL, imgR) in enumerate(frames):
+        ref.process_stereo(imgL, imgR, i * 0.1)
+        own.process_stereo(imgL, imgR, i * 0.1)
+        fed.process_stereo(imgL, imgR, i * 0.1)
+        print(f"frame {i} {time.time() - t0:.1f}s", file=sys.stderr, flush=True)
+    trajs = {name: vo.trajectory_wc() for name, vo in (("ref", ref), ("own", own), ("fed", fed))}
+
+    own_dep = first_departure(ref_stats, own_stats, n)
+    fed_dep = first_departure(ref_stats, fed_stats, n)
+    at = None
+    if own_dep is not None:
+        f = own_dep["frame"]
+        left = frames[f][0].astype(np.uint8).astype(np.float32)
+        rf, r_u, r_d = ref_feats[f]
+        pf, p_u, p_d = own_feats[f]
+        at = feature_diff(own.extractor, left, rf, pf, r_d, p_d)
+        at["frame"] = f
+        at["accounted_for_by"] = (
+            "the features (H6 pyramid, H7 flat-pair bits): the fed port tracks"
+            " like the reference through this frame"
+            if fed_dep is None or fed_dep["frame"] > f else
+            "the port's tracking: the fed port departs too")
+
+    ref_levels = [np.asarray(x) for x in jax.jit(ref_pyr.build_pyramid, static_argnums=(1, 2))(
+        jnp.asarray(left0), 8, 1.2)]
+    port_levels = [x.numpy() for x in pyr_ops.build_pyramid(
+        torch.from_numpy(left0), 8, 1.2, own.extractor.pyramid_weights())]
+
+    def summary(name, vo):
+        ate = ref_evaluation.ate_rmse(trajs[name][:, :3, 3], world.poses_wc[:n, :3, 3])
+        return {"keyframes": vo.n_kf, "map_points": vo.n_mp, "ate_cm": ate["rmse"] * 100.0,
+                "lost": sum(1 for r in vo.records if r.state != "OK")}
+
+    print(json.dumps({
+        "world": f"{W}x{H}, {n} frames of the {n_world}-frame world, cadences"
+                 f" {'bench' if args.bench_cadences else 'off'}, CPU",
+        "first_departure_own": own_dep,
+        "first_departure_fed": fed_dep,
+        "features_at_own_departure": at,
+        "pyramid_max_abs_diff_frame0": [float(np.abs(a - b).max())
+                                        for a, b in zip(ref_levels, port_levels)],
+        "ref": summary("ref", ref), "own": summary("own", own), "fed": summary("fed", fed),
+        "seconds": time.time() - t0,
     }))
 
 

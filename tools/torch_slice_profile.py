@@ -1,16 +1,18 @@
-"""Where the time of the PyTorch port's tracking frame loop goes, on a GPU.
+"""Where the time of the PyTorch port's main path goes, on a GPU.
 
 Runs `chip_smoke.py`'s slice (bench.py's configuration, KITTI-00-sized
-rendered frames, keyframe-rate programs off) on "cuda": a warm pass, then
-`--frames` frames under `torch.profiler`, with one range per stage of the
-frame (extract pair, track, keyframe creation). Prints:
+rendered frames; the keyframe-rate programs off, or with `--bench-cadences`
+on at bench.py's cadences, as the smoke's full phase runs them) on "cuda":
+a warm pass, then `--frames` frames under `torch.profiler`, with one range
+per stage of the frame (extract pair, track, keyframe creation) and per
+keyframe-rate program (mapping pass, local BA, maintenance). Prints:
 
   * wall ms per frame and the device's busy and idle share (sum of kernel
     times over the wall time of the profiled window);
   * host and device ms per frame of each stage range;
   * the top operations by device time.
 
-    python3 tools/torch_slice_profile.py [--frames 20] [--warm 10]
+    python3 tools/torch_slice_profile.py [--frames 20] [--warm 10] [--bench-cadences]
 """
 
 import argparse
@@ -28,7 +30,8 @@ import chip_smoke  # noqa: E402
 from vi_slam_tpu_torch.io import synthetic  # noqa: E402
 from vi_slam_tpu_torch.pipeline.stereo_vo import make_stereo_vo  # noqa: E402
 
-STAGES = ("_extract_pair", "_track", "_create_kf_body")
+STAGES = ("_extract_pair", "_track", "_create_kf_body", "_mapping_pass", "_local_ba_program",
+          "_maintenance_program")
 
 
 def instrument(vo):
@@ -47,13 +50,15 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=20)
     ap.add_argument("--warm", type=int, default=10)
+    ap.add_argument("--bench-cadences", action="store_true",
+                    help="mapping, local BA and maintenance at bench.py's cadences (2/3/8)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("torch_slice_profile: needs a CUDA device")
     n = args.warm + args.frames
     world = synthetic.make_billboard_world(n_frames=n, n_boards=4000, seed=11, speed=1.0)
     frames = chip_smoke.render_frames(world, n)
-    cfg = chip_smoke.slice_config()
+    cfg = chip_smoke.slice_config(bench_cadences=args.bench_cadences)
 
     warm = make_stereo_vo(cfg)
     for i in range(args.warm):

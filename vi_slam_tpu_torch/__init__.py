@@ -9,8 +9,9 @@ This package imports neither JAX nor `vi_slam_tpu`. Entry points take a
 `device` argument, default "cuda", and raise when CUDA is absent; the
 tests pass `device="cpu"`, where each kernel's plain PyTorch version runs.
 
-Slice 1 covers the stereo tracking frame loop: `make_stereo_vo` ->
-`StereoVO.process_stereo`.
+The port covers the main path: `make_stereo_vo` ->
+`StereoVO.process_stereo`, the stereo tracking frame loop (slice 1) and
+the keyframe-rate mapping pass, local BA and map maintenance (slice 2).
 """
 
 __version__ = "0.1.0"

@@ -21,6 +21,7 @@ from vi_slam_tpu_torch.ops import fast_kernel
 from vi_slam_tpu_torch.ops import orb as orb_ops
 from vi_slam_tpu_torch.ops import pyramid as pyr_ops
 from vi_slam_tpu_torch.utils.config import ExtractorConfig
+from vi_slam_tpu_torch.utils.device import resolve_device
 
 
 class Features(NamedTuple):
@@ -89,11 +90,11 @@ class _Selection(NamedTuple):
 class OrbExtractor:
     """ORB extraction for one image geometry on one device."""
 
-    def __init__(self, cfg: ExtractorConfig, height: int, width: int, device="cpu"):
+    def __init__(self, cfg: ExtractorConfig, height: int, width: int, device="cuda"):
         self.cfg = cfg
         self.height = height
         self.width = width
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.shapes = pyr_ops.level_shapes(height, width, cfg.n_levels, cfg.scale_factor)
         self.scales = pyr_ops.scale_factors(cfg.n_levels, cfg.scale_factor)
         self.budgets = level_budgets(cfg.n_features, cfg.n_levels, cfg.scale_factor)

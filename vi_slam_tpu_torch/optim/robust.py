@@ -16,3 +16,10 @@ def huber_weight(chi2: torch.Tensor, delta2: float) -> torch.Tensor:
     e = torch.sqrt(torch.clamp(chi2, min=1e-18))
     delta = math.sqrt(delta2)
     return torch.where(chi2 <= delta2, torch.ones_like(e), delta / e)
+
+
+def huber_rho(chi2: torch.Tensor, delta2: float) -> torch.Tensor:
+    """Huber cost rho(chi2), for the LM accept test."""
+    delta = math.sqrt(delta2)
+    e = torch.sqrt(torch.clamp(chi2, min=0.0))
+    return torch.where(chi2 <= delta2, chi2, 2.0 * delta * e - delta2)

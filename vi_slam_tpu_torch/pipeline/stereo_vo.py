@@ -1,6 +1,6 @@
-"""Stereo visual odometry: the host state machine over the per-frame device
-program — a PyTorch copy of the tracking frame loop of the JAX package's
-`pipeline/stereo_vo.py::StereoVO`.
+"""Stereo visual odometry: the host state machine over the device programs
+— a PyTorch copy of the JAX package's `pipeline/stereo_vo.py::StereoVO`
+on the main path.
 
 Per frame, `_frame` extracts ORB features from both images, associates
 them along the scanlines, tracks the local map (covisibility window,
@@ -11,24 +11,28 @@ vector, copied to pinned host memory without blocking. The host keeps a
 so its bookkeeping (records, states, keyframe counts) happens on the same
 frames as in the reference.
 
+At keyframe rate the host runs, on the reference's cadences, the mapping
+pass (fuse with covisible neighbours, stereo triangulation against the
+best one), local BA over the covisibility window, and map maintenance
+(young-point culling and the culling of one redundant keyframe). None of
+them waits for the device: local BA's correction of the live pose chain
+is composed on the device, and a cull's bookkeeping comes back with a
+later frame's pull. `trajectory_wc` walks past culled reference keyframes.
+
 The reference's two `lax.cond`s (the wide-radius retry and the keyframe
 creation) become host branches here, which read one device scalar each.
-
-This slice covers the tracking loop only. The keyframe-rate programs
-(mapping pass, local BA, map maintenance) come in the next slice:
-`_kf_mapping` raises NotImplementedError when a cadence would run one, so
-a configuration that needs them cannot run silently without them. The
-same holds for a map reset (a lost young map, or a timestamp jump).
-Relocalization and the atlas need a place-recognition vocabulary; like
-the reference constructed without one, the port has neither, and a
+A map reset (a lost young map, or a timestamp jump) is not ported: it
+raises. Relocalization and the atlas need a place-recognition vocabulary;
+like the reference constructed without one, the port has neither, and a
 failed frame degrades OK -> RECENTLY_LOST -> LOST.
 """
 
 from __future__ import annotations
 
+import time
 from collections import deque
 from dataclasses import dataclass
-from typing import List, NamedTuple, Optional
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -41,11 +45,12 @@ from vi_slam_tpu_torch.ops import match as match_ops
 from vi_slam_tpu_torch.ops import pyramid as pyr_ops
 from vi_slam_tpu_torch.ops import stereo as stereo_ops
 from vi_slam_tpu_torch.ops.fast import top_k
-from vi_slam_tpu_torch.optim import pose_opt
+from vi_slam_tpu_torch.optim import local_ba, pose_opt
 from vi_slam_tpu_torch.pipeline import steps
 from vi_slam_tpu_torch.slam_map import state as map_state
 from vi_slam_tpu_torch.utils.config import SystemConfig
 from vi_slam_tpu_torch.utils.device import resolve_device
+from vi_slam_tpu_torch.utils.numerics import norm3_f32
 
 NOT_INITIALIZED = "NOT_INITIALIZED"
 OK = "OK"
@@ -138,6 +143,13 @@ class StereoVO:
         )
         self.n_kf = 0
         self.n_mp = 0
+        # culled keyframe -> (parent slot, T_culled @ inv(T_parent) at cull
+        # time), the hops trajectory_wc walks past culled reference keyframes
+        self.culled_parent: Dict[int, Tuple[int, np.ndarray]] = {}
+        self._pending_culls: List[Tuple[torch.Tensor, Optional[torch.cuda.Event]]] = []
+        # keyframe-rate programs: runs, and host seconds spent dispatching them
+        self.program_runs = {"mapping": 0, "local_ba": 0, "maintenance": 0}
+        self.program_host_s = {"mapping": 0.0, "local_ba": 0.0, "maintenance": 0.0}
         self.state = NOT_INITIALIZED
         self.ref_kf = -1
         self.frame_id = -1
@@ -304,7 +316,7 @@ class StereoVO:
         Twc = T.inverse()
         pw = Twc.apply(pc)
         rays = pw - Twc.t
-        dist = torch.sqrt(torch.sum(rays * rays, dim=-1))
+        dist = norm3_f32(rays)
         normal = rays / torch.clamp(dist[:, None], min=1e-9)
         sf = ext.scale_factor
         max_dist = dist * torch.pow(sf, feats.level[sel].to(torch.float32))
@@ -315,6 +327,69 @@ class StereoVO:
         )
         upd_ids = torch.where(matched_mp >= 0, matched_mp, torch.full_like(matched_mp, M - 1))
         return map_state.update_point_stats(mstate, upd_ids)
+
+    def _mapping_pass(self, mstate, ref_slot: int):
+        """Fuse the newest keyframe's points with its covisible neighbours,
+        then triangulate its unmatched keypoints against the best
+        neighbour, and add the new points with both observations."""
+        cfg = self.cfg
+        ext = cfg.extractor
+        mstate = steps.fuse_neighbors(
+            self.cam, mstate, ref_slot, float(cfg.camera.width), float(cfg.camera.height),
+            n_window=cfg.ba.mapping_fuse_window, max_fuse=96, th_low=cfg.matcher.th_low,
+            scale_factor=ext.scale_factor, n_levels=ext.n_levels,
+        )
+        if cfg.camera.bf > 0:
+            K = mstate.kf_R.shape[0]
+            M = mstate.mp_pos.shape[0]
+            window = steps.covis_window(mstate, ref_slot, 2)
+            nb = torch.clamp(window[1:2], 0, K - 1)
+            cand = steps.match_and_triangulate(
+                self.cam, mstate, ref_slot, nb, max_new=256, th_low=cfg.matcher.th_low,
+                scale_factor=ext.scale_factor, n_levels=ext.n_levels,
+            )
+            base_id = mstate.mp_count[0].clone()  # create_points moves mp_count
+            offsets = torch.cumsum(cand.create.to(torch.int32), 0) - 1
+            create = cand.create & (base_id + offsets < M - 1) & (window[1] >= 0)
+            mstate, ids = map_state.create_points(
+                mstate, base_id, ref_slot, cand.kp_new, cand.pos, cand.desc, cand.normal,
+                cand.min_dist, cand.max_dist, create,
+            )
+            mstate = map_state.register_obs(mstate, ids, nb, cand.kp_ref, create)
+            mstate = map_state.update_point_stats(
+                mstate, torch.where(create, ids, torch.full_like(ids, M - 1)))
+        return mstate
+
+    def _local_ba_program(self, mstate, ref_slot: int):
+        """Local BA over the covisibility window of `ref_slot`. The origin
+        keyframe and the oldest third of the window are fixed. Returns
+        (map, delta) with delta = inv(T_ref before) @ T_ref after, the
+        right-multiplicative correction of the live pose chain."""
+        ba_cfg = self.cfg.ba
+        window = steps.covis_window(mstate, ref_slot, ba_cfg.max_local_kfs)
+        alive = window >= 0
+        slot_key = torch.where(alive, window, torch.full_like(window, torch.iinfo(torch.int32).max))
+        # padded entries share one key, so both sorts must be stable
+        rank = torch.argsort(torch.argsort(slot_key, stable=True), stable=True)
+        n_fix = torch.clamp(torch.sum(alive.to(torch.int32)) // 3, min=1)
+        fixed = (rank < n_fix) | (window == 0)
+        mp_ids, _ = steps.gather_local_points(mstate, window, ba_cfg.max_local_points)
+        prob = steps.gather_ba_problem(
+            self.cam, mstate, window, fixed, mp_ids, n_window=ba_cfg.max_local_kfs,
+            n_points=ba_cfg.max_local_points, n_obs=self.cfg.map.max_obs_per_point,
+        )
+        res = local_ba._ba_core(self.cam, prob, ba_cfg.local_ba_iters, True, 1e-4)
+        r1 = map_state.dev_index(ref_slot, self.device)
+        ref_pre = SE3(mstate.kf_R[r1][0], mstate.kf_t[r1][0])  # copies
+        mstate = steps.scatter_ba_result(mstate, window, fixed, mp_ids, res.poses, res.points)
+        ref_post = SE3(mstate.kf_R[r1][0], mstate.kf_t[r1][0])
+        return mstate, ref_pre.inverse().compose(ref_post)
+
+    def _maintenance_program(self, mstate, ref_slot: int, min_obs: int, lo: int, hi: int):
+        """Young-point culling, then the culling of at most one redundant
+        keyframe of slots [lo, hi). Returns (map, the cull's info (15,))."""
+        mstate, _ = map_state.cull_young_points(mstate, ref_slot, min_obs)
+        return map_state.cull_redundant_keyframe(mstate, lo, hi)
 
     # ------------------------------------------------------------------ API
 
@@ -350,10 +425,11 @@ class StereoVO:
         )
 
     def flush(self) -> Optional[TrackStats]:
-        """Finalize every frame in flight."""
+        """Finalize every frame in flight, and apply the pending culls."""
         st = None
         while self._inflight:
             st = self._finalize(self._inflight.popleft())
+        self._apply_pending_culls()
         return st
 
     def _upload_images(self, img_left, img_right) -> torch.Tensor:
@@ -388,6 +464,7 @@ class StereoVO:
             st.state = self.state
             return st
 
+        self._apply_pending_culls()
         p = self._pull_packed(job)
         T_np = np.eye(4)
         T_np[:3, :3] = p[0:9].reshape(3, 3)
@@ -448,28 +525,74 @@ class StereoVO:
         return st
 
     def _kf_mapping(self):
-        """Keyframe-rate duties. Their programs come in the next slice, so
-        each raises when its cadence would run it."""
+        """Keyframe-rate duties on the reference's cadences: the mapping
+        pass every `mapping_every`-th keyframe (from 3 keyframes on), local
+        BA every `local_ba_every`-th, maintenance every
+        `maintenance_every`-th counted from 4 keyframes on."""
         tr = self.cfg.tracker
         self._map_tick += 1
         if self.n_kf >= 3 and self._map_tick % tr.mapping_every == 0:
-            raise NotImplementedError(
-                "mapping pass (fuse + triangulate) is not ported yet;"
-                " set tracker.mapping_every beyond the run's keyframes"
-            )
+            t0 = time.perf_counter()
+            self.map = self._mapping_pass(self.map, self.ref_kf)
+            self._count("mapping", t0)
         self._ba_tick += 1
-        if self.n_kf >= 3 and self._ba_tick % tr.local_ba_every == 0:
-            raise NotImplementedError(
-                "local BA is not ported yet; set tracker.local_ba_every"
-                " beyond the run's keyframes"
-            )
-        if self.n_kf >= 4:
-            self._maint_tick += 1
-            if self._maint_tick % tr.maintenance_every == 0:
-                raise NotImplementedError(
-                    "map maintenance (culling) is not ported yet; set"
-                    " tracker.maintenance_every beyond the run's keyframes"
-                )
+        if self._ba_tick % tr.local_ba_every == 0:
+            self._local_ba()
+        self._culling()
+
+    def _count(self, program: str, t0: float):
+        self.program_runs[program] += 1
+        self.program_host_s[program] += time.perf_counter() - t0
+
+    def _local_ba(self):
+        """Local BA, then the correction of the live (newest dispatched)
+        pose, composed on the device."""
+        if self.n_kf < 3:
+            return
+        t0 = time.perf_counter()
+        self.map, delta = self._local_ba_program(self.map, self.ref_kf)
+        self.T_dev = self.T_dev.compose(delta)
+        self._last_good = (self.T_dev.R, self.T_dev.t)
+        self._count("local_ba", t0)
+
+    def _culling(self):
+        """Map maintenance. A stereo map's young point needs 3
+        observations; the keyframe slot range [1, n_kf - 3) is empty below
+        8 keyframes. The cull's info comes back with a later pull."""
+        if self.n_kf < 4:
+            return
+        self._maint_tick += 1
+        if self._maint_tick % self.cfg.tracker.maintenance_every:
+            return
+        t0 = time.perf_counter()
+        min_obs = 3 if self.cfg.camera.bf > 0 else 2
+        lo = 1
+        hi = max(self.n_kf - 3, lo) if self.n_kf >= 8 else lo
+        self.map, info = self._maintenance_program(self.map, self.ref_kf, min_obs, lo, hi)
+        if self.device.type == "cuda":
+            host = torch.empty(info.shape, dtype=info.dtype, pin_memory=True)
+            host.copy_(info, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+            self._pending_culls.append((host, done))
+        else:
+            self._pending_culls.append((info, None))
+        self._count("maintenance", t0)
+
+    def _apply_pending_culls(self):
+        for info, done in self._pending_culls:
+            if done is not None:
+                done.synchronize()
+            self._apply_cull_info(info.numpy())
+        self._pending_culls = []
+
+    def _apply_cull_info(self, info: np.ndarray):
+        if float(info[0]) < 0.5:
+            return
+        T_rel = np.eye(4)
+        T_rel[:3, :3] = np.asarray(info[3:12], np.float64).reshape(3, 3)
+        T_rel[:3, 3] = np.asarray(info[12:15], np.float64)
+        self.culled_parent[int(info[1])] = (int(info[2]), T_rel)
 
     # ------------------------------------------------------------- helpers
 
@@ -532,17 +655,23 @@ class StereoVO:
 
     def trajectory_wc(self) -> np.ndarray:
         """(N, 4, 4) Twc of every processed frame, through its reference
-        keyframe's current pose."""
+        keyframe's current pose; a culled reference keyframe is replaced
+        by its parent, through the relative pose kept at the cull."""
         self.flush()
         kf_R = self.map.kf_R.cpu().numpy()
         kf_t = self.map.kf_t.cpu().numpy()
         out = []
         for rec in self.records:
             if rec.ref_kf >= 0:
+                ref = rec.ref_kf
+                T_chain = np.eye(4)
+                while ref in self.culled_parent:
+                    ref, T_rel = self.culled_parent[ref]
+                    T_chain = T_chain @ T_rel
                 T_ref = np.eye(4)
-                T_ref[:3, :3] = kf_R[rec.ref_kf]
-                T_ref[:3, 3] = kf_t[rec.ref_kf]
-                Tcw = rec.T_rel @ T_ref
+                T_ref[:3, :3] = kf_R[ref]
+                T_ref[:3, 3] = kf_t[ref]
+                Tcw = rec.T_rel @ T_chain @ T_ref
             else:
                 Tcw = rec.T_rel
             out.append(np.linalg.inv(Tcw))
