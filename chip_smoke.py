@@ -8,7 +8,7 @@ unperturbed and once per seed with 20 pixels of each left image moved by
 one grey level, and prints one JSON line a run (the port's ATE spread).
 
 Needs one CUDA card, `nvcc` and `nvidia-smi`; imports nothing of JAX or of
-the JAX package. It runs five phases in order and prints one line per
+the JAX package. It runs eight phases in order and prints one line per
 phase with its seconds, flushed as the phase ends:
 
   device  the card's name and `nvidia-smi` name and power limit;
@@ -48,6 +48,43 @@ phase with its seconds, flushed as the phase ends:
           frames, keyframes, map points, culled keyframes beside the
           reference's, the runs of each program, steady frames/s and the
           host ms of each program.
+  loop-parts
+          loop closing on "cuda" on the JAX package's drifted-ring test map
+          (12 keyframes, `make_drifted_ring`): the `LoopCloser` closes the
+          loop of the last keyframe, first with the essential graph alone,
+          then with global BA after it (stereo measurements). It fails
+          unless the reference test's limits hold: the seam closed to
+          < 0.05 m, every keyframe centre < 0.25 m and < 0.35 x the drift
+          from the truth; with global BA the worst centre closer than the
+          graph alone and the map's reprojection error halved. It prints
+          the device span and host ms of the correction and of global BA.
+  loop    bench.py --loop's configuration: the closed-loop world (200
+          frames, the tail re-traversing the start), bench.py's cadences,
+          and a vocabulary trained on the card from the port's own ORB
+          descriptors of every 20th left image, as bench.py trains it.
+          The reference forks a new map in its atlas on this world, which
+          the port does not have yet, so the phase runs (and its reference
+          figures were taken) with atlas_enabled=False. It fails on a
+          trajectory that is not finite, a launch count other than 2 per
+          frame, no loop query, or a loop program (BoW add, loop detection,
+          Sim3 verification, essential-graph correction, global BA,
+          relocalization attempt) that ran no time where the reference's
+          run ran it. It prints ATE, lost frames, relocalizations, loop
+          queries and loops closed beside the reference's, steady frames/s
+          and the host ms of each loop program.
+  ring    the board ring (`make_board_ring_loop`: a 3 m circle driven once
+          every 100 frames inside a ring of 1,500 boards all round it) at
+          full width, 120 frames, bench.py's configuration and map capacity
+          with a vocabulary trained as in `loop`, atlas off. Tracking holds
+          all round, and the reference closes one loop on it and runs global
+          BA after the correction. It fails unless the port closes a loop
+          through `make_stereo_vo` and runs the correction and global BA, on
+          a trajectory that is not finite, on a launch count other than 2 per
+          frame, or on a loop program that ran no time where the
+          reference's run ran it. It prints the frame on which each
+          correction ended beside the reference's, the device span and host
+          ms of the correction and of global BA, and ATE, lost frames, loop
+          queries and keyframes beside the reference's.
 
 Any failure raises and the script exits non-zero with the traceback. On
 success it prints the `nvidia-smi` line, a JSON line of per-kernel
@@ -85,6 +122,29 @@ REF_ATE_COMMIT = "3ae1616da44f970b81e3b9d63fc47b9c82ced020"
 REF_FULL = dict(ate_cm=7.529685106552717, lost=0, keyframes=173, map_points=38112,
                 culled_keyframes=0)
 REF_FULL_COMMIT = "917b76847761432cf82235f5d92bce1e6e58c6d1"
+
+# The same for the loop phase: `python tools/slice_reference_ate.py --loop
+# --frames 200 --flush-at 10 --no-atlas` (an accuracy figure, not a
+# speed), with the runs of each loop program (no Sim3 verification
+# succeeds, so no correction and no global BA run; the loop-parts phase
+# runs them). With the atlas on (bench.py's default) the reference forks a
+# map on this world: 1 fork, 1 merge, 1 loop closed, 59 frames lost.
+REF_LOOP = dict(ate_cm=626.180248293151, lost=75, keyframes=58, relocalizations=26,
+                loop_queries=57, loops_closed=0,
+                programs=dict(bow_add=57, detect=57, verify=3, correct=0, gba=0, reloc=101))
+REF_LOOP_COMMIT = "a317520704971996ea587f988b572d587d5236c2"
+LOOP_PROGRAMS = ("bow_add", "detect", "verify", "correct", "gba", "reloc")
+
+# The same for the ring phase: `python tools/slice_reference_ate.py --ring
+# --frames 120 --flush-at 10 --no-atlas` (an accuracy figure, not a speed):
+# the board ring (`synthetic.make_board_ring_loop(120, 100, 3.0)`), where
+# tracking holds all round and one loop closes, with global BA after its
+# correction, on the frame at which the correction ended. The world and its
+# frames equal the reference's (tests/test_torch_synthetic.py).
+RING_FRAMES, RING_PERIOD, RING_RADIUS = 120, 100, 3.0
+REF_RING = dict(ate_cm=2.7374575745641176, lost=0, keyframes=25, loop_queries=24,
+                loops_closed=1, loop_frames=[109],
+                programs=dict(bow_add=24, detect=21, verify=3, correct=1, gba=1, reloc=0))
 
 # KITTI-00 stereo geometry and the slice world (bench.py's).
 W, H = 1241, 376
@@ -337,31 +397,44 @@ def perturb_frames(frames, seed):
     return out
 
 
-def run_loop(cfg, world, n_frames, perturb=None, flush_at=N_WARM):
+def run_loop(cfg, world, n_frames, perturb=None, flush_at=N_WARM, frames=None, vocab=None,
+             all_tracked=True):
     """Render `n_frames` of `world` (perturbed by `perturb_frames` when
-    `perturb` is a seed), warm a StereoVO up on the first N_WARM, then
-    drive a fresh one over all of them with the kernel's launch count set
-    to 0 just before (the warm pass included) and read just after. The
-    pipeline is drained before frame `flush_at` (None: never; bench.py
-    drains it where its steady clock starts, as the default does here).
-    Returns the StereoVO and the run's numbers."""
+    `perturb` is a seed; or take the given `frames`), warm a StereoVO up on
+    the first N_WARM, then drive a fresh one over all of them with the
+    kernel's launch count set to 0 just before (the warm pass included)
+    and read just after. The pipeline is drained before frame `flush_at`
+    (None: never; bench.py drains it where its steady clock starts, as the
+    default does here). A vocabulary turns loop closing on; with
+    `all_tracked` a lost frame fails the run. Returns the StereoVO and the
+    run's numbers."""
     import torch
     from vi_slam_tpu_torch.io import evaluation
     from vi_slam_tpu_torch.ops import fast_kernel
     from vi_slam_tpu_torch.pipeline.stereo_vo import make_stereo_vo
 
     t_render = time.perf_counter()
-    frames = render_frames(world, n_frames)
+    if frames is None:
+        frames = render_frames(world, n_frames)
     if perturb is not None:
         frames = perturb_frames(frames, perturb)
     render_s = time.perf_counter() - t_render
 
     fast_kernel.reset_launches()
-    vo_w = make_stereo_vo(cfg)
+    vo_w = make_stereo_vo(cfg, vocab=vocab)
     for i in range(N_WARM):
         vo_w.process_stereo(*frames[i], i * 0.1)
     vo_w.flush()
-    vo = make_stereo_vo(cfg)
+    vo = make_stereo_vo(cfg, vocab=vocab)
+    loop_frames = []
+    if vocab is not None:
+        after = vo._after_loop_correction
+
+        def corrected():
+            loop_frames.append(vo.frame_id + 1)  # frames dispatched when it ends
+            return after()
+
+        vo._after_loop_correction = corrected
     t_all = time.perf_counter()
     t_steady = None
     for i, (imgL, imgR) in enumerate(frames):
@@ -386,7 +459,7 @@ def run_loop(cfg, world, n_frames, perturb=None, flush_at=N_WARM):
     if not np.all(np.isfinite(est)) or est.shape != (n_frames, 4, 4):
         raise AssertionError(f"trajectory not finite or of shape {est.shape}")
     lost = sum(1 for r in vo.records if r.state != "OK")
-    if lost != 0:
+    if all_tracked and lost != 0:
         raise AssertionError(f"{lost} frames not tracked")
     ate_cm = evaluation.ate_rmse(est[:, :3, 3], world.poses_wc[:n_frames, :3, 3])["rmse"] * 100.0
     return vo, {
@@ -399,6 +472,7 @@ def run_loop(cfg, world, n_frames, perturb=None, flush_at=N_WARM):
         "map_points": vo.n_mp,
         "launches": launches,
         "frames": frames_done,
+        "loop_frames": loop_frames,
     }
 
 
@@ -429,14 +503,183 @@ def phase_full():
         raise AssertionError(
             f"ATE {full['ate_cm']:.4f} cm vs reference {REF_FULL['ate_cm']:.4f} cm"
             f" (tolerance {tol_cm:.4f} cm)")
-    runs = dict(vo.program_runs)
+    programs = ("mapping", "local_ba", "maintenance")
+    runs = {k: vo.program_runs[k] for k in programs}
     idle = [name for name, n in runs.items() if n <= 0]
     if idle:
         raise AssertionError(f"programs that ran no time: {idle} (runs {runs})")
     full["runs"] = runs
-    full["host_ms"] = {k: v * 1e3 for k, v in vo.program_host_s.items()}
+    full["host_ms"] = {k: vo.program_host_s[k] * 1e3 for k in programs}
     full["culled_keyframes"] = len(vo.culled_parent)
     return full
+
+
+def ring_errors(m, truth):
+    """Per-keyframe distance of the ring's camera centres from the truth."""
+    from vi_slam_tpu_torch.io import synthetic
+
+    k = synthetic.RING_KFS
+
+    def centres(R, t):
+        return np.einsum("kji,kj->ki", R, -t)
+
+    return np.linalg.norm(centres(m["kf_R"][:k], m["kf_t"][:k]) - centres(*truth), axis=-1)
+
+
+def ring_reprojection(m):
+    """Mean reprojection error (px) of the ring map's live observations."""
+    from vi_slam_tpu_torch.io import synthetic
+
+    fx, fy, cx, cy = synthetic.RING_CAM
+    errs = []
+    for k in range(synthetic.RING_KFS):
+        sel = np.flatnonzero((m["kf_mp"][k] >= 0) & m["mp_valid"][np.clip(m["kf_mp"][k], 0, None)])
+        pc = m["mp_pos"][m["kf_mp"][k, sel]] @ m["kf_R"][k].T + m["kf_t"][k]
+        uv = np.stack([fx * pc[:, 0] / pc[:, 2] + cx, fy * pc[:, 1] / pc[:, 2] + cy], -1)
+        errs.append(np.linalg.norm(uv - m["kf_xy"][k, sel], axis=-1))
+    return float(np.mean(np.concatenate(errs)))
+
+
+def phase_loop_parts():
+    """The drifted ring closed on the card, by the essential graph alone
+    and then with global BA (stereo, bf 60), held to the reference test's
+    limits. Returns the correction's and global BA's timings."""
+    from vi_slam_tpu_torch.cameras.base import CameraParams
+    from vi_slam_tpu_torch.io import synthetic
+    from vi_slam_tpu_torch.pipeline.loop_closing import LoopCloser
+    from vi_slam_tpu_torch.retrieval import vocabulary
+    from vi_slam_tpu_torch.slam_map.state import map_state_from_numpy, map_state_to_numpy
+    from vi_slam_tpu_torch.utils.config import MapConfig, SystemConfig
+
+    cfg = SystemConfig(map=MapConfig(max_keyframes=16, max_points=4096, max_obs_per_point=8,
+                                     essential_weight_min=100))
+    d, desc, seam, truth = synthetic.make_drifted_ring(bf=60.0)
+    before = ring_errors(d, truth)
+    vocab = vocabulary.train_vocabulary(desc, k=6, levels=3, iters=4, seed=2, device="cuda")
+    out = {}
+    for gba in (False, True):
+        cam = CameraParams.make(*synthetic.RING_CAM, bf=60.0, device="cuda")
+        lc = LoopCloser(cfg, cam, vocab, fix_scale=True, min_gap_kfs=8, run_gba=gba)
+        lc.consistency_th = 1  # one query, as the reference test drives it
+        state = map_state_from_numpy(d, device="cuda")
+        for k in range(synthetic.RING_KFS):
+            lc.add_keyframe(state, k)
+        state, closed = lc.process(state, synthetic.RING_KFS - 1, synthetic.RING_KFS)
+        m = map_state_to_numpy(state)
+        err = ring_errors(m, truth)
+        if not closed or lc.loop_edges != [(synthetic.RING_KFS - 1, 0)]:
+            raise AssertionError(f"the ring's loop did not close (edges {lc.loop_edges})")
+        if not (err[-1] < 0.05 and err.max() < 0.25 and err.max() < 0.35 * before.max()):
+            raise AssertionError(f"ring not restored: seam {err[-1]:.4f} m, worst {err.max():.4f}"
+                                 f" m, drift {before.max():.4f} m")
+        dup = np.asarray(sorted(seam.values()))
+        if m["mp_valid"][dup].mean() >= 0.6:
+            raise AssertionError("the seam duplicates were not fused")
+        out[gba] = dict(err=err, reproj=ring_reprojection(m), device_ms=lc.timer.device_ms(),
+                        host_ms={k: v * 1e3 for k, v in lc.timer.host_s.items()})
+    if not (out[True]["err"].max() < out[False]["err"].max()
+            and out[True]["reproj"] < 0.5 * out[False]["reproj"]):
+        raise AssertionError(
+            f"global BA did not tighten the ring: worst {out[True]['err'].max():.4f} vs"
+            f" {out[False]['err'].max():.4f} m, reprojection {out[True]['reproj']:.3f} vs"
+            f" {out[False]['reproj']:.3f} px")
+    return dict(drift=before.max(), graph=out[False], gba=out[True])
+
+
+def loop_world_frames():
+    """bench.py --loop's world (tools/slice_reference_ate.py --loop)."""
+    from vi_slam_tpu_torch.io import synthetic
+
+    world, _, frames = synthetic.make_billboard_inertial_sequence(
+        N_FULL_FRAMES, FX, FY, CX, CY, W, H, BF, fps=10.0, n_landmarks=2000, n_boards=4000,
+        seed=11, closed_loop=True, closed_loop_period_frames=int(N_FULL_FRAMES * 0.8), speed=5.0,
+    )
+    return world, frames
+
+
+def train_loop_vocabulary(cfg, frames):
+    """bench.py's vocabulary, trained on the card: the port's ORB
+    descriptors of every (frames // 10)-th left image, k=8, 3 levels, 4
+    iterations, seed 3."""
+    import torch
+    from vi_slam_tpu_torch.features.extractor import OrbExtractor
+    from vi_slam_tpu_torch.retrieval import vocabulary
+
+    ext = OrbExtractor(cfg.extractor, H, W, device="cuda")
+    descs = []
+    for i in range(0, len(frames), max(len(frames) // 10, 1)):
+        feats, _ = ext.extract(torch.from_numpy(np.asarray(frames[i][0], np.float32)).cuda())
+        descs.append(feats.desc[feats.valid])
+    return vocabulary.train_vocabulary(torch.cat(descs), k=8, levels=3, iters=4, seed=3,
+                                       device="cuda")
+
+
+def phase_loop():
+    """bench.py --loop's configuration end to end, atlas off."""
+    import dataclasses
+
+    t0 = time.perf_counter()
+    world, frames = loop_world_frames()
+    cfg = slice_config(bench_cadences=True)
+    cfg = cfg.replace(tracker=dataclasses.replace(cfg.tracker, atlas_enabled=False))
+    vocab = train_loop_vocabulary(cfg, frames)
+    prep_s = time.perf_counter() - t0
+    vo, r = run_loop(cfg, world, N_FULL_FRAMES, frames=frames, vocab=vocab, all_tracked=False)
+    lc = vo.loop_closer
+    runs, host, _ = loop_numbers(vo)
+    if lc.stats.n_queries <= 0:
+        raise AssertionError("no loop query ran")
+    missing = [p for p in LOOP_PROGRAMS if REF_LOOP["programs"].get(p, 0) > 0 and runs[p] <= 0]
+    if missing:
+        raise AssertionError(f"loop programs that ran no time where the reference ran them:"
+                             f" {missing} (port {runs}, reference {REF_LOOP['programs']})")
+    r.update(prep_s=prep_s, runs=runs, host_ms=host, queries=lc.stats.n_queries,
+             closed=lc.stats.n_loops_closed, relocalized=vo.n_relocalized)
+    return r
+
+
+def loop_numbers(vo):
+    """Runs, host ms and device span (ms; None where not measured) of each
+    loop program of a StereoVO's run."""
+    lc = vo.loop_closer
+    runs = dict(lc.timer.runs, reloc=vo.program_runs["reloc"])
+    host = dict({k: v * 1e3 for k, v in lc.timer.host_s.items()},
+                reloc=vo.program_host_s["reloc"] * 1e3)
+    device = dict(lc.timer.device_ms(), reloc=vo.timer.device_ms().get("reloc"))
+    return runs, host, device
+
+
+def phase_ring():
+    """The board ring end to end at full width, atlas off: a loop closes
+    through `make_stereo_vo`, and its correction and global BA run on the
+    card over bench.py's map capacity (256 keyframes, 65,536 points)."""
+    import dataclasses
+
+    from vi_slam_tpu_torch.io import synthetic
+
+    t0 = time.perf_counter()
+    world = synthetic.make_board_ring_loop(RING_FRAMES, RING_PERIOD, RING_RADIUS)
+    frames = render_frames(world, RING_FRAMES)
+    cfg = slice_config(bench_cadences=True)
+    cfg = cfg.replace(tracker=dataclasses.replace(cfg.tracker, atlas_enabled=False))
+    vocab = train_loop_vocabulary(cfg, frames)
+    prep_s = time.perf_counter() - t0
+    vo, r = run_loop(cfg, world, RING_FRAMES, frames=frames, vocab=vocab, all_tracked=False)
+    runs, host, device = loop_numbers(vo)
+    lc = vo.loop_closer
+    if lc.stats.n_loops_closed < 1 or runs["correct"] < 1 or runs["gba"] < 1:
+        raise AssertionError(
+            f"the ring's loop was not closed with global BA: {lc.stats.n_loops_closed} loops,"
+            f" runs {runs} (reference: {REF_RING['loops_closed']} loop at frame"
+            f" {REF_RING['loop_frames']}, runs {REF_RING['programs']})")
+    missing = [p for p in LOOP_PROGRAMS if REF_RING["programs"].get(p, 0) > 0 and runs[p] <= 0]
+    if missing:
+        raise AssertionError(f"loop programs that ran no time where the reference ran them:"
+                             f" {missing} (port {runs}, reference {REF_RING['programs']})")
+    r.update(prep_s=prep_s, runs=runs, host_ms=host, device_ms=device,
+             queries=lc.stats.n_queries, closed=lc.stats.n_loops_closed,
+             relocalized=vo.n_relocalized)
+    return r
 
 
 def ate_runs(seeds, flush_at) -> None:
@@ -543,6 +786,62 @@ def main(argv) -> int:
               f" {runs['maintenance']}"
               f" | host: {per_run} | fast_resp_pref launches {full['launches']} for"
               f" {full['frames']} frames")
+
+    t0 = time.perf_counter()
+    lp = phase_loop_parts()
+
+    def spans(res, name):
+        dev = res["device_ms"].get(name)
+        dev = "not measured" if dev is None else f"{dev:.2f} ms"
+        return f"device span {dev}, host {res['host_ms'][name]:.2f} ms"
+
+    log_phase("loop-parts", t0,
+              f"| ring drift {lp['drift']:.4f} m | graph only: seam {lp['graph']['err'][-1]:.4f} m,"
+              f" worst {lp['graph']['err'].max():.4f} m, reprojection"
+              f" {lp['graph']['reproj']:.3f} px | with global BA: seam"
+              f" {lp['gba']['err'][-1]:.4f} m, worst {lp['gba']['err'].max():.4f} m, reprojection"
+              f" {lp['gba']['reproj']:.3f} px | correction (essential graph):"
+              f" {spans(lp['gba'], 'correct')} | global BA: {spans(lp['gba'], 'gba')}")
+
+    t0 = time.perf_counter()
+    lo = phase_loop()
+    ref = REF_LOOP
+    per_prog = ", ".join(
+        f"{k} {lo['runs'][k]} runs (reference {ref['programs'].get(k, 0)}) {lo['host_ms'][k]:.1f} ms"
+        for k in LOOP_PROGRAMS)
+    log_phase("loop", t0,
+              f"| atlas off (the reference forks a map on this world with it on) | world and"
+              f" vocabulary {lo['prep_s']:.1f} s | steady {lo['steady_fps']:.3f} frames/s"
+              f" (all {lo['all_fps']:.3f}) | ATE {lo['ate_cm']:.4f} cm (reference"
+              f" {ref['ate_cm']:.4f} cm at {REF_LOOP_COMMIT[:7]}) | lost {lo['lost']} of"
+              f" {N_FULL_FRAMES} (reference {ref['lost']}) | relocalizations {lo['relocalized']}"
+              f" (reference {ref['relocalizations']}) | loop queries {lo['queries']} (reference"
+              f" {ref['loop_queries']}) | loops closed {lo['closed']} (reference"
+              f" {ref['loops_closed']}) | keyframes {lo['keyframes']} (reference"
+              f" {ref['keyframes']}) | host: {per_prog} | fast_resp_pref launches"
+              f" {lo['launches']} for {lo['frames']} frames")
+
+    t0 = time.perf_counter()
+    ri = phase_ring()
+    ref = REF_RING
+
+    def span(name):
+        dev = ri["device_ms"].get(name)
+        dev = "not measured" if dev is None else f"{dev:.2f} ms"
+        return f"device span {dev}, host {ri['host_ms'][name]:.2f} ms"
+
+    log_phase("ring", t0,
+              f"| atlas off | {RING_FRAMES} frames, a {RING_RADIUS} m circle every {RING_PERIOD}"
+              f" frames | world and vocabulary {ri['prep_s']:.1f} s | steady"
+              f" {ri['steady_fps']:.3f} frames/s (all {ri['all_fps']:.3f}) | loop corrected at"
+              f" frame {ri['loop_frames']} (reference {ref['loop_frames']}) | correction:"
+              f" {span('correct')} | global BA: {span('gba')} | ATE {ri['ate_cm']:.4f} cm"
+              f" (reference {ref['ate_cm']:.4f} cm) | lost {ri['lost']} (reference {ref['lost']})"
+              f" | loop queries {ri['queries']} (reference {ref['loop_queries']}) | loops closed"
+              f" {ri['closed']} (reference {ref['loops_closed']}) | keyframes {ri['keyframes']}"
+              f" (reference {ref['keyframes']}) | runs {ri['runs']} (reference"
+              f" {ref['programs']}) | fast_resp_pref launches {ri['launches']} for"
+              f" {ri['frames']} frames")
     print(f"total: {time.perf_counter() - t_start:.2f} s", flush=True)
 
     print(smi, flush=True)

@@ -32,6 +32,18 @@ from vi_slam_tpu_torch.ops import pyramid as port_pyr
 TH, TH_LO = 20.0, 7.0
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread while this file's tests run: the tests run in
+    parallel workers that share the machine's cores, and torch's default
+    of one thread per core in each worker oversubscribes them (spinning
+    threads made these files about ten times slower)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _textured():
     """tests/test_frontend.py's textured_pair left image (192x256)."""
     rng = np.random.default_rng(19)

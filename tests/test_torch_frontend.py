@@ -35,6 +35,19 @@ from vi_slam_tpu_torch.features.extractor import Features, OrbExtractor
 from vi_slam_tpu_torch.ops import hamming, orb, pyramid, stereo
 from vi_slam_tpu_torch.utils.config import ExtractorConfig
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread while this file's tests run: the tests run in
+    parallel workers that share the machine's cores, and torch's default
+    of one thread per core in each worker oversubscribes them (spinning
+    threads made these files about ten times slower)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 DESC_EPS = 1e-4
 LEVEL_ATOL = 2e-2
 

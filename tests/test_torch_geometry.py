@@ -32,7 +32,30 @@ from vi_slam_tpu_torch.geometry import epipolar, triangulate
 from vi_slam_tpu_torch.lie import se3
 from vi_slam_tpu_torch.lie.se3 import SE3
 
-x64_off = jax.enable_x64(False)
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread while this file's tests run: the tests run in
+    parallel workers that share the machine's cores, and torch's default
+    of one thread per core in each worker oversubscribes them (spinning
+    threads made these files about ten times slower)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def x64_off():
+    """A fresh context per use: one shared `jax.enable_x64(False)` object
+    entered twice (nested) saves False over the True it must restore, and
+    leaves x64 off for every later test in the process."""
+    return jax.enable_x64(False)
+
+
+@pytest.fixture(autouse=True)
+def _x64_restored():
+    yield
+    assert jax.config.jax_enable_x64 is True, "a test left JAX's x64 mode off"
 K = np.array([[500.0, 0.0, 320.0], [0.0, 500.0, 240.0], [0.0, 0.0, 1.0]], np.float32)
 XI2 = np.array([0.5, 0.05, 0.02, 0.01, 0.08, 0.005], np.float32)
 
@@ -58,7 +81,7 @@ def _two_view(seed, n=200):
 
 
 def _ref_poses():
-    with x64_off:
+    with x64_off():
         T2 = ref_se3.exp(J(XI2))
         return RefSE3.identity(), T2
 
@@ -70,7 +93,7 @@ def _port_poses():
 def _project_both(pts, seed=None, noise=0.0):
     """Pixels of the points in both views (the reference's projection)."""
     T1, T2 = _ref_poses()
-    with x64_off:
+    with x64_off():
         cam = RefCam.make(500.0, 500.0, 320.0, 240.0, bf=50.0)
         uv1 = np.asarray(ref_pinhole.project(cam, T1.apply(J(pts))))
         uv2 = np.asarray(ref_pinhole.project(cam, T2.apply(J(pts))))
@@ -86,7 +109,7 @@ def test_solve3x3_matches():
     A = rng.normal(0, 1, (64, 3, 3)).astype(np.float32)
     A[0] = 0.0  # singular: the determinant guard
     b = rng.normal(0, 1, (64, 3)).astype(np.float32)
-    with x64_off:
+    with x64_off():
         want = np.asarray(ref_triangulate._solve3x3(J(A), J(b)))
     got = N(triangulate._solve3x3(T(A), T(b)))
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
@@ -100,7 +123,7 @@ def test_triangulate_dlt_matches(case):
     T1r, T2r = _ref_poses()
     T1p, T2p = _port_poses()
     if case == "exact":
-        with x64_off:
+        with x64_off():
             b1 = np.asarray(T1r.apply(J(pts)))
             b2 = np.asarray(T2r.apply(J(pts)))
         b1 = (b1 / b1[:, 2:3]).astype(np.float32)
@@ -109,7 +132,7 @@ def test_triangulate_dlt_matches(case):
         uv1, uv2 = _project_both(pts, seed=2, noise=0.5)
         pc = CameraParams.make(500.0, 500.0, 320.0, 240.0, bf=50.0)
         b1, b2 = N(pinhole.unproject(pc, T(uv1))), N(pinhole.unproject(pc, T(uv2)))
-    with x64_off:
+    with x64_off():
         want = np.asarray(ref_triangulate.triangulate_dlt(T1r, T2r, J(b1), J(b2)))
     got = N(triangulate.triangulate_dlt(T1p, T2p, T(b1), T(b2)))
     np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-4)
@@ -124,7 +147,7 @@ def test_parallax_and_depth_match():
     pts = _two_view(3)
     T1r, T2r = _ref_poses()
     T1p, T2p = _port_poses()
-    with x64_off:
+    with x64_off():
         cos_r = np.asarray(ref_triangulate.parallax_cos(T1r, T2r, J(pts)))
         z_r = np.asarray(ref_triangulate.depths(T2r, J(pts)))
     cos_p = N(triangulate.parallax_cos(T1p, T2p, T(pts)))
@@ -145,7 +168,7 @@ def test_epipolar_matches(case):
     fn = "sampson_distance_sq" if case.startswith("sampson") else "epiline_distance_sq"
     T1r, T2r = _ref_poses()
     T1p, T2p = _port_poses()
-    with x64_off:
+    with x64_off():
         E_r = np.asarray(ref_epipolar.essential_from_relative(T1r.compose(T2r.inverse())))
         F_r = ref_epipolar.fundamental_from_poses(T1r, T2r, J(K), J(K))
         d2_r = np.asarray(getattr(ref_epipolar, fn)(F_r, J(uv1), J(uv2)))

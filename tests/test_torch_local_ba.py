@@ -45,7 +45,30 @@ from vi_slam_tpu_torch.pipeline.stereo_vo import StereoVO
 from vi_slam_tpu_torch.slam_map import state as map_state
 from vi_slam_tpu_torch.utils.config import config_from_dict
 
-x64_off = jax.enable_x64(False)
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread while this file's tests run: the tests run in
+    parallel workers that share the machine's cores, and torch's default
+    of one thread per core in each worker oversubscribes them (spinning
+    threads made these files about ten times slower)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def x64_off():
+    """A fresh context per use: one shared `jax.enable_x64(False)` object
+    entered twice (nested) saves False over the True it must restore, and
+    leaves x64 off for every later test in the process."""
+    return jax.enable_x64(False)
+
+
+@pytest.fixture(autouse=True)
+def _x64_restored():
+    yield
+    assert jax.config.jax_enable_x64 is True, "a test left JAX's x64 mode off"
 
 
 def _synth_ba_problem(seed, n_cams=6, n_pts=200, obs_per_pt=4, noise=0.3):
@@ -60,7 +83,7 @@ def _synth_ba_problem(seed, n_cams=6, n_pts=200, obs_per_pt=4, noise=0.3):
     obs_cam = rng.integers(0, n_cams, (n_pts, obs_per_pt)).astype(np.int32)
     dxi = (rng.normal(0, 1, (n_cams, 6)) * 0.02).astype(np.float32)
     dxi[:2] = 0.0
-    with x64_off:
+    with x64_off():
         cam = RefCam.make(500.0, 500.0, 320.0, 240.0, bf=50.0)
         gt = ref_se3.exp(J(xis))
         pc = np.einsum("mpij,mj->mpi", np.asarray(gt.R)[obs_cam], pts) + np.asarray(gt.t)[obs_cam]
@@ -81,7 +104,7 @@ def _synth_ba_problem(seed, n_cams=6, n_pts=200, obs_per_pt=4, noise=0.3):
 
 
 def _run_both(arrays, poses0, iters, strategy="lm"):
-    with x64_off:
+    with x64_off():
         cam = RefCam.make(500.0, 500.0, 320.0, 240.0, bf=50.0)
         prob = ref_ba.BAProblem(poses=RefSE3(*map(J, poses0)), **{k: J(v) for k, v in arrays.items()})
         res = jax.jit(lambda p: ref_ba._ba_core(cam, p, iters, True, 1e-4, strategy=strategy))(prob)
@@ -156,7 +179,7 @@ def test_reduced_system_matches():
     arrays, poses0, _, _ = _synth_ba_problem(9)
     lam = np.float32(1e-3)
     dxc = (np.random.default_rng(9).normal(0, 1e-3, (6, 6))).astype(np.float32)
-    with x64_off:
+    with x64_off():
         cam = RefCam.make(500.0, 500.0, 320.0, 240.0, bf=50.0)
         prob = ref_ba.BAProblem(poses=RefSE3(*map(J, poses0)), **{k: J(v) for k, v in arrays.items()})
         S, b, U, Hi, bp = ref_ba._visual_reduced_system(cam, prob.poses, prob.points, prob,
@@ -202,7 +225,7 @@ def test_gather_and_scatter_ba_problem_match(scene, window, fixed):
     window = np.array(window, np.int32)
     fixed = np.array(fixed)
     rcam, pcam = _cams()
-    with x64_off:
+    with x64_off():
         ms_r = to_ref(scene)
         ids_r, _ = ref_steps.gather_local_points(ms_r, J(window), 256)
         prob_r = ref_steps.gather_ba_problem(rcam, ms_r, J(window), J(fixed), ids_r,
@@ -244,7 +267,7 @@ def test_local_ba_program_matches(scene, ref_slot):
     slot 3: 100.64 -> 100.56 on both sides), where the float32 rounding of
     the 48x48 solve moves them by up to 1.1 mm."""
     cfg = scene_config(max_local_kfs=8)
-    with x64_off:
+    with x64_off():
         ref = RefStereoVO(cfg)
         out, dR_r, dt_r = ref._local_ba_fn(to_ref(scene), jnp.int32(ref_slot))
         want = ref_state.MapState(*[np.asarray(a) for a in out])
@@ -279,7 +302,7 @@ def test_lu_pivots_match_reference():
     Jm[:, 2] = Jm[:, 0] + rng.normal(0, 1, (4000, 3)) * 10 ** rng.uniform(-6, -1, (4000, 1))
     A = np.concatenate([np.einsum("nki,nkj->nij", Jm, Jm) + 1e-4 * np.eye(3),
                         np.round(rng.normal(0, 2, (1000, 3, 3)))]).astype(np.float32)
-    with x64_off:
+    with x64_off():
         lu = np.asarray(jax.jit(jax.lax.linalg.lu)(J(A))[0])
         inv = np.asarray(jax.jit(jnp.linalg.inv)(J(A)))
     got = N(lu3_pivots(T(A)))
@@ -306,7 +329,7 @@ def test_singular_landmark_keeps_the_cameras():
     arrays["obs_mask"][:40, 0] = True
     arrays["obs_cam"][:40, 0] = 0
     arrays["obs_stereo"][:40] = False
-    with x64_off:
+    with x64_off():
         cam = RefCam.make(500.0, 500.0, 320.0, 240.0, bf=50.0)
         pc = np.asarray(RefSE3(J(poses0[0][0]), J(poses0[1][0])).apply(J(near)))
         arrays["obs_uvr"][:40, 0] = np.asarray(ref_pinhole.stereo_project(cam, J(pc)))

@@ -35,7 +35,30 @@ from vi_slam_tpu_torch.pipeline.stereo_vo import StereoVO
 from vi_slam_tpu_torch.slam_map import state as map_state
 from vi_slam_tpu_torch.utils.config import config_from_dict
 
-x64_off = jax.enable_x64(False)
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread while this file's tests run: the tests run in
+    parallel workers that share the machine's cores, and torch's default
+    of one thread per core in each worker oversubscribes them (spinning
+    threads made these files about ten times slower)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def x64_off():
+    """A fresh context per use: one shared `jax.enable_x64(False)` object
+    entered twice (nested) saves False over the True it must restore, and
+    leaves x64 off for every later test in the process."""
+    return jax.enable_x64(False)
+
+
+@pytest.fixture(autouse=True)
+def _x64_restored():
+    yield
+    assert jax.config.jax_enable_x64 is True, "a test left JAX's x64 mode off"
 
 
 def T(a):
@@ -57,7 +80,7 @@ def to_numpy(ms):
 def to_ref(d):
     """The reference's MapState on copies of the arrays: its keyframe-rate
     programs donate the map, which must not reach the numpy inputs."""
-    with x64_off:
+    with x64_off():
         return ref_state.MapState(**{k: jnp.array(v, copy=True) for k, v in d.items()})
 
 
@@ -86,7 +109,7 @@ def _mini_map():
     the same 3 physical points; keyframe 1 holds duplicates 3, 4 of ids 0, 1
     and the true id 2."""
     K, NF, M, P = 4, 16, 32, 8
-    with x64_off:
+    with x64_off():
         d = to_numpy(ref_state.allocate(K, NF, M, P))
     rng = np.random.default_rng(0)
     pts = np.array([[0.0, 0.0, 5.0], [1.0, 0.5, 6.0], [-1.0, -0.5, 7.0]])
@@ -167,7 +190,7 @@ def test_fusion_matches(case):
     the reference test's own checks hold for the port."""
     d = _mini_map()
     ref_fn, port_fn = _fusion_case(case, d)
-    with x64_off:
+    with x64_off():
         want = ref_fn(to_ref(d))
         want = ref_state.MapState(*[np.asarray(a) for a in want])
     got = port_fn(to_port(d))
@@ -196,7 +219,7 @@ def test_fusion_matches(case):
 
 
 def _alloc(K, NF, M, P):
-    with x64_off:
+    with x64_off():
         return to_numpy(ref_state.allocate(K, NF, M, P))
 
 
@@ -232,7 +255,7 @@ def test_cull_young_points_matches(case):
                                  rng.integers(0, 40, (8, 16)), -1)
         d["mp_obs_kf"][:40] = rng.integers(-1, 8, (40, 4))
         cur = 10
-    with x64_off:
+    with x64_off():
         out, n = ref_state.cull_young_points(to_ref(d), jnp.int32(cur), jnp.int32(3))
         want = ref_state.MapState(*[np.asarray(a) for a in out])
         n = int(n)
@@ -256,7 +279,7 @@ def test_remove_keyframe_compacts_observations_matches():
     d["mp_obs_kf"][0, :2] = [1, 2]
     d["mp_obs_idx"][0, :2] = [5, 6]
     d["mp_n_obs"][0] = 2
-    with x64_off:
+    with x64_off():
         want = ref_state.remove_keyframe(to_ref(d), jnp.int32(1))
     got = map_state.remove_keyframe(to_port(d), 1)
     assert_maps_equal(got, want)
@@ -305,7 +328,7 @@ def test_register_obs_collisions_match(case):
         d["mp_obs_kf"][15, 0] = 3
         mp, kp, ok = [6, 15, 4], [2, 5, 7], [True, True, False]
     args = (np.array(mp, np.int32), np.array(kp, np.int32), np.array(ok))
-    with x64_off:
+    with x64_off():
         want = ref_state.register_obs(to_ref(d), J(args[0]), jnp.int32(1), J(args[1]),
                                       J(args[2]))
     got = map_state.register_obs(to_port(d), T(args[0]), 1, T(args[1]), T(args[2]))
@@ -333,7 +356,7 @@ def test_fuse_points_chained_pairs_match():
     src = np.array([1, 2, 3, 4, 5, 6], np.int32)
     dst = np.array([2, 7, 7, 4, 0, 8], np.int32)
     ok = np.array([True, True, True, True, True, False])
-    with x64_off:
+    with x64_off():
         want = ref_state.fuse_points(to_ref(d), J(src), J(dst), J(ok))
     got = map_state.fuse_points(to_port(d), T(src), T(dst), T(ok))
     assert_maps_equal(got, want)
@@ -376,7 +399,7 @@ def test_cull_redundant_keyframe_matches(case):
     range culls nothing. Maps exact, info within 1e-6."""
     d = _redundant_map(tie=case != "best_wins")
     lo, hi = (1, 1) if case == "empty_range" else (1, 5)
-    with x64_off:
+    with x64_off():
         red_r = np.asarray(ref_state.keyframe_redundancy(to_ref(d)))
         out, info_r = ref_state.cull_redundant_keyframe(to_ref(d), jnp.int32(lo), jnp.int32(hi))
         want = ref_state.MapState(*[np.asarray(a) for a in out])
@@ -435,7 +458,7 @@ def scene_map(seed=0):
     level = rng.integers(0, 3, n_pts)
     first_id = {}
     fx, cx, cy, bf = CAM["fx"], CAM["cx"], CAM["cy"], CAM["bf"]
-    with x64_off:
+    with x64_off():
         ms = ref_state.allocate(SK, SNF, SM, SP)
         for k in range(N_KF):
             R, t = _scene_pose(k)
@@ -541,7 +564,7 @@ def test_match_and_triangulate_matches(scene, case):
         for a, b in zip(free4[:6:2], free4[1:6:2]):
             _duplicate_keypoint(d, 4, a, b)
     rcam, pcam = _cams()
-    with x64_off:
+    with x64_off():
         want = ref_steps.match_and_triangulate(rcam, to_ref(d), jnp.int32(5), jnp.int32(kf_ref),
                                                max_new=64, n_levels=4)
         want = [np.asarray(a) for a in want]
@@ -564,7 +587,7 @@ def vo_pair():
     """A reference StereoVO and the port's (CPU) with the scene's config,
     for their keyframe-rate programs."""
     cfg = scene_config()
-    with x64_off:
+    with x64_off():
         ref = RefStereoVO(cfg)
     port = StereoVO(config_from_dict(dataclasses.asdict(cfg)), device="cpu")
     return ref, port
@@ -574,7 +597,7 @@ def test_fuse_pair_dir_scene_matches(scene):
     """Keyframe 5's points into keyframe 3 and back, on the scene: new
     observations and merges exact; statistics within 1e-5."""
     rcam, pcam = _cams()
-    with x64_off:
+    with x64_off():
         ms = to_ref(scene)
         for a, b in ((5, 3), (3, 5)):
             ms = ref_steps.fuse_pair_dir(rcam, ms, jnp.int32(a), jnp.int32(b), jnp.asarray(True),
@@ -595,7 +618,7 @@ def test_mapping_pass_matches(scene, vo_pair, ref_slot):
     after it equal, floats within 1e-4 (new point positions from the DLT
     solve)."""
     ref, port = vo_pair
-    with x64_off:
+    with x64_off():
         want = ref._mapping_fn(to_ref(scene), jnp.int32(ref_slot))
         want = ref_state.MapState(*[np.asarray(a) for a in want])
     got = port._mapping_pass(to_port(scene), ref_slot)
@@ -613,7 +636,7 @@ def test_maintenance_matches(scene, vo_pair, lo, hi):
     # make keyframe 2 redundant: its points seen by 4 keyframes
     pts2 = d["kf_mp"][2][d["kf_mp"][2] >= 0]
     d["mp_n_obs"][pts2] = np.maximum(d["mp_n_obs"][pts2], 4)
-    with x64_off:
+    with x64_off():
         out, info_r = ref._maintenance_fn(to_ref(d), jnp.int32(5), jnp.int32(3), jnp.int32(lo),
                                           jnp.int32(hi))
         want = ref_state.MapState(*[np.asarray(a) for a in out])

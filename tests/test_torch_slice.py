@@ -22,6 +22,10 @@ Two port runs are compared with one reference run:
     poses by centimetres on this small, weakly constrained world. There
     the per-frame states must be equal, the keyframe counts within one,
     and both ATEs below 0.30 m, the bound of tests/test_vo_oracle.py.
+
+At the end, fed runs with the keyframe-rate programs on: a straight world
+whose keyframes get culled, and a closed loop with a vocabulary, where
+loop closing and relocalization run.
 """
 
 import dataclasses
@@ -32,14 +36,19 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_loop_parts import ReferenceDraws
+
 from vi_slam_tpu.io import evaluation as ref_evaluation
 from vi_slam_tpu.io import synthetic as ref_synthetic
 from vi_slam_tpu.pipeline.klt_vo import make_stereo_vo as ref_make_stereo_vo
+from vi_slam_tpu.retrieval import vocabulary as ref_voc
 from vi_slam_tpu.utils import config as rc
 from vi_slam_tpu_torch.features.extractor import Features
 from vi_slam_tpu_torch.io import evaluation, synthetic
 from vi_slam_tpu_torch.pipeline.stereo_vo import make_stereo_vo
-from vi_slam_tpu_torch.slam_map.state import map_state_to_numpy
+from vi_slam_tpu_torch.retrieval import vocabulary
+from vi_slam_tpu_torch.lie.se3 import SE3
+from vi_slam_tpu_torch.slam_map.state import map_state_from_numpy, map_state_to_numpy
 from vi_slam_tpu_torch.utils.config import config_from_dict
 
 W, H = 320, 240
@@ -155,8 +164,9 @@ def test_own_extraction_tracks_like_reference(runs):
 
 def test_keyframe_rate_programs_raise():
     """The mapping pass, local BA and maintenance run at every cadence and
-    raise nothing; what the port still lacks, a map reset (here after a
-    timestamp jump), raises instead of being skipped."""
+    raise nothing; a timestamp jump (here 100 s) resets the system, as
+    the reference without an atlas does, and the jumped frame initializes
+    a new map."""
     world = synthetic.make_billboard_world(n_frames=6, n_boards=1500, seed=11, speed=1.0)
     frames = _frames(world, synthetic.render_billboard_image)
     cfg = config_from_dict(dataclasses.asdict(_cfg(
@@ -167,8 +177,9 @@ def test_keyframe_rate_programs_raise():
     assert all(r.state == "OK" for r in vo.records)
     assert vo.program_runs["mapping"] > 0 and vo.program_runs["local_ba"] > 0
     assert vo.program_runs["maintenance"] > 0
-    with pytest.raises(NotImplementedError, match="timestamp jump"):
-        vo.process_stereo(*frames[0], 100.0)
+    vo.process_stereo(*frames[0], 100.0)
+    assert (vo.n_kf, len(vo.records), vo.state) == (1, 1, "OK")
+    assert vo.records[0].timestamp == 100.0 and vo.frame_id == 0
 
 
 def test_entry_point_defaults_to_cuda_and_refuses_other_frontends(monkeypatch):
@@ -315,3 +326,155 @@ def test_cadences_fed_poses_and_ate_match(cadence_runs):
     assert abs(_ate(fed_traj, world) - _ate(ref_traj, world)) < 1e-4
     for k in fed.culled_parent:
         np.testing.assert_allclose(fed.culled_parent[k][1], ref.culled_parent[k][1], atol=1e-4)
+
+
+# ------------------------------------------------- the loop closed
+#
+# bench.py --loop's world turns too fast for a small image: at 320x240 and
+# a few dozen frames its circle is so tight that both systems lose most of
+# the frames (its boards stand only ahead of the start, so half of the
+# circle looks at empty background), and no loop closes. The run below
+# keeps its trajectory (make_inertial_world(closed_loop=True): a circle of
+# 3 m, period 36 frames, 48 frames, so the last 12 re-traverse the start)
+# and puts 1500 boards all around it. bench.py's cadences (2/3/8), a
+# vocabulary trained as bench.py trains it (from the reference's
+# descriptors of every 4th left image), atlas off. The reference closes
+# one loop there.
+
+LOOP_FRAMES, LOOP_PERIOD, LOOP_RADIUS = 48, 36, 3.0
+
+
+def _loop_world():
+    """The closed circle and its ring of boards, and the rendered pairs."""
+    boards = synthetic.make_board_ring_loop(LOOP_FRAMES, LOOP_PERIOD, LOOP_RADIUS)
+    return boards, _frames(boards, synthetic.render_billboard_image)
+
+
+@pytest.fixture(scope="module")
+def loop_runs(runs):
+    """The reference (its extraction program of `runs`) and the port fed
+    its features, both with the same vocabulary; the port's Sim3 and PnP
+    RANSACs get the reference's draws. Each side notes the frames
+    dispatched and the keyframe poses when it closes a loop; the
+    reference also keeps its map, pose chain and result at the first frame
+    dispatched after its correction."""
+    ref_extract = runs[1]._extract_pair_fn
+    world, frames = _loop_world()
+    cfg = _cfg(mapping_every=2, local_ba_every=3, maintenance_every=8, atlas_enabled=False)
+    cfg = dataclasses.replace(cfg, ba=dataclasses.replace(cfg.ba, local_ba_iters=2,
+                                                          mapping_fuse_window=1),
+                              map=dataclasses.replace(cfg.map, max_keyframes=64,
+                                                      max_points=16384))
+    feats, closed, after_fix = [], [], {}
+    with jax.enable_x64(False):
+        descs = []
+        for i in range(0, LOOP_FRAMES, LOOP_FRAMES // 10):
+            f, _, _ = ref_extract(jnp.asarray(np.stack(frames[i]).astype(np.uint8)))
+            descs.append(np.asarray(f.desc)[np.asarray(f.valid)])
+        desc = np.concatenate(descs).astype(np.uint32)
+        ref = ref_make_stereo_vo(cfg, vocab=ref_voc.train_vocabulary(desc, k=8, levels=3, iters=4,
+                                                                    seed=3))
+        frame_fn = ref._frame_fn
+        after = ref._after_loop_correction
+
+        def frame(imgs, ms, carry, T_last, vel, fid, *rest):
+            if closed and not after_fix:
+                after_fix.update(fid=int(fid), map={k: np.array(v) for k, v in zip(ms._fields, ms)},
+                                 T_last=(np.array(T_last.R), np.array(T_last.t)))
+            out = frame_fn(imgs, ms, carry, T_last, vel, fid, *rest)
+            if after_fix.get("fid") == int(fid):
+                after_fix.update(T=np.array(out[0].T_t), n_in=int(np.array(out[0].packed)[24]))
+            feats.append(([np.array(x) for x in out[3]], np.array(out[4]), np.array(out[5])))
+            return out
+
+        def extract(imgs):
+            out = ref_extract(imgs)
+            feats.append(([np.array(x) for x in out[0]], np.array(out[1]), np.array(out[2])))
+            return out
+
+        def corrected():
+            closed.append((len(feats), list(ref.loop_closer.loop_edges), np.array(ref.map.kf_t),
+                           ref.loop_closer.stats.n_queries))
+            return after()
+
+        ref._frame_fn, ref._extract_pair_fn = frame, extract
+        ref._after_loop_correction = corrected
+        for i, (l, r) in enumerate(frames):
+            ref.process_stereo(l, r, i * 0.1)
+        ref_traj = ref.trajectory_wc()
+    fed = make_stereo_vo(config_from_dict(dataclasses.asdict(cfg)),
+                         vocab=vocabulary.train_vocabulary(desc, k=8, levels=3, iters=4, seed=3,
+                                                          device="cpu"),
+                         device="cpu")
+    fed.loop_closer.draw = ReferenceDraws(7)
+    fed.relocalizer.draw = ReferenceDraws(11)
+    queue = iter(feats)
+    fed._extract_pair = lambda imgs: _port_features(*next(queue))
+    fed_closed = []
+    fed_after = fed._after_loop_correction
+
+    def fed_corrected():
+        fed_closed.append((fed.frame_id + 1, list(fed.loop_closer.loop_edges),
+                           fed.map.kf_t.numpy().copy(), fed.loop_closer.stats.n_queries))
+        return fed_after()
+
+    fed._after_loop_correction = fed_corrected
+    for i, (l, r) in enumerate(frames):
+        fed.process_stereo(l, r, i * 0.1)
+    return dict(world=world, ref=ref, ref_traj=ref_traj, closed=closed, after_fix=after_fix,
+                feats=feats, fed=fed, fed_traj=fed.trajectory_wc(), fed_closed=fed_closed)
+
+
+def test_loop_fed_states_keyframes_and_loops_equal(loop_runs):
+    """Up to the first frame tracked on the corrected map: every frame's
+    state, reference keyframe and keyframe flag equal; the loop queries,
+    the frame where the loop closes, the closing keyframe and its
+    candidate equal; no frame lost or relocalized on either side. The
+    reference closes one loop.
+
+    After that the runs depart (ROADMAP F7): the first frame after the
+    correction is tracked by the wide search on 62 inliers, and its pose
+    moves by 16 cm with the few map points (91 of ~3000) that the float32
+    local and global BAs left more than 1 cm apart, although the keyframe
+    poses agree to 2e-5 m. The next test shows that the port tracks that
+    frame exactly as the reference does on the reference's map."""
+    ref, fed = loop_runs["ref"], loop_runs["fed"]
+    closed, fed_closed = loop_runs["closed"], loop_runs["fed_closed"]
+    assert len(closed) >= 1 and ref.loop_closer.stats.n_loops_closed >= 1
+    # frames dispatched, loop edges and loop queries when each loop closes
+    assert [(n, e, q) for n, e, _, q in fed_closed] == [(n, e, q) for n, e, _, q in closed]
+    assert fed.loop_closer.loop_edges == ref.loop_closer.loop_edges
+    upto = loop_runs["after_fix"]["fid"] + 1
+    assert [r.state for r in fed.records] == [r.state for r in ref.records]
+    assert all(r.state == "OK" for r in ref.records) and fed.n_relocalized == 0
+    assert [r.ref_kf for r in fed.records][:upto] == [r.ref_kf for r in ref.records][:upto]
+    assert _kf_frames(fed)[:upto] == _kf_frames(ref)[:upto]
+    assert fed.loop_closer.timer.runs["correct"] == fed.loop_closer.timer.runs["gba"] == len(closed)
+
+
+def test_loop_fed_corrected_keyframes_and_trajectory(loop_runs):
+    """The keyframe poses right after the correction (essential graph and
+    global BA over 41 keyframes) within 1e-3 m of the reference's (2e-5 m
+    measured); the trajectory of every frame before the correction within
+    5e-3 m (float32 GN and BA in another order), as it ends."""
+    closed, fed_closed = loop_runs["closed"], loop_runs["fed_closed"]
+    for (_, _, kf_r, _), (_, _, kf_p, _) in zip(closed, fed_closed):
+        np.testing.assert_allclose(kf_p, kf_r, rtol=0, atol=1e-3)
+    n = loop_runs["after_fix"]["fid"]
+    fed_traj, ref_traj = loop_runs["fed_traj"], loop_runs["ref_traj"]
+    assert np.all(np.isfinite(fed_traj))
+    np.testing.assert_allclose(fed_traj[:n], ref_traj[:n], rtol=0, atol=5e-3)
+
+
+def test_loop_fed_first_frame_after_correction_on_reference_map(loop_runs):
+    """The port's tracking program, given the reference's corrected map,
+    pose chain and features at the first frame after the correction,
+    returns the reference's pose within 1e-3 m and its inlier count."""
+    fix, fed = loop_runs["after_fix"], loop_runs["fed"]
+    ms = map_state_from_numpy(fix["map"], device="cpu")
+    feats, ur, dp = _port_features(*loop_runs["feats"][fix["fid"]])
+    K = ms.kf_R.shape[0]
+    b = fed._track(ms, torch.clamp(ms.kf_count[0].long() - 1, 0, K - 1), feats, ur, dp,
+                   SE3(*(torch.from_numpy(a) for a in fix["T_last"])), SE3.identity())
+    assert int(b.packed[24]) == fix["n_in"]
+    np.testing.assert_allclose(b.T_t.numpy(), fix["T"], rtol=0, atol=1e-3)

@@ -44,7 +44,30 @@ from vi_slam_tpu_torch.slam_map import state as map_state
 from vi_slam_tpu_torch.utils import config
 from vi_slam_tpu_torch.utils.device import resolve_device
 
-x64_off = jax.enable_x64(False)
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread while this file's tests run: the tests run in
+    parallel workers that share the machine's cores, and torch's default
+    of one thread per core in each worker oversubscribes them (spinning
+    threads made these files about ten times slower)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def x64_off():
+    """A fresh context per use: one shared `jax.enable_x64(False)` object
+    entered twice (nested) saves False over the True it must restore, and
+    leaves x64 off for every later test in the process."""
+    return jax.enable_x64(False)
+
+
+@pytest.fixture(autouse=True)
+def _x64_restored():
+    yield
+    assert jax.config.jax_enable_x64 is True, "a test left JAX's x64 mode off"
 
 
 def T(a):
@@ -112,7 +135,7 @@ def _ref_so3(w):
 @pytest.mark.parametrize("case", sorted(W_CASES))
 def test_so3_matches(case):
     w = W_CASES[case]
-    with x64_off:
+    with x64_off():
         want = dict(zip(("exp", "log", "jl", "jr_inv", "norm"), map(np.asarray, _ref_so3(J(w)))))
     R = want["exp"]
     got = {
@@ -140,7 +163,7 @@ def test_se3_matches():
     xi = rng.normal(0, 0.5, (32, 6)).astype(np.float32)
     d = rng.normal(0, 0.05, (32, 6)).astype(np.float32)
     x = rng.normal(0, 5, (32, 3)).astype(np.float32)
-    with x64_off:
+    with x64_off():
         want = [np.asarray(a) for a in _ref_se3(J(xi), J(d), J(x))]
     A = se3.exp(T(xi))
     B = se3.exp(T(xi[::-1].copy()))
@@ -167,7 +190,7 @@ def test_pinhole_and_robust_match():
     xyz = np.concatenate([rng.uniform(-5, 5, (50, 2)), rng.uniform(0.5, 40, (50, 1))], -1).astype(np.float32)
     uv = rng.uniform(0, 600, (50, 2)).astype(np.float32)
     chi2 = rng.uniform(0, 30, 50).astype(np.float32)
-    with x64_off:
+    with x64_off():
         want = [np.asarray(a) for a in _ref_cam(J(xyz), J(uv), J(chi2))]
     pc = CameraParams.make(500.0, 480.0, 320.0, 240.0, bf=50.0)
     got = [pinhole.project(pc, T(xyz)), pinhole.project_jac(pc, T(xyz)),
@@ -191,7 +214,7 @@ def test_masked_min2_matches():
     rng = np.random.default_rng(4)
     D = rng.integers(0, 20, (40, 60)).astype(np.int32)  # many ties
     mask = rng.uniform(size=(40, 60)) < 0.3
-    with x64_off:
+    with x64_off():
         want = [np.asarray(a) for a in ref_match.masked_min2(J(D), J(mask))]
     got = [N(a) for a in match.masked_min2(T(D), T(mask))]
     for g, w in zip(got, want):
@@ -233,7 +256,7 @@ def test_search_by_projection_matches(radius):
     klv[src] = plv
     pv = rng.uniform(size=nm) < 0.9
     kv = rng.uniform(size=nk) < 0.95
-    with x64_off:
+    with x64_off():
         want = ref_match.search_by_projection(
             J(pxy), J(plv), J(pd), J(pv), J(kxy), J(klv), J(kd), J(kv),
             radius=radius, level_scales=J(SCALES), max_dist=100, ratio=0.9)
@@ -261,7 +284,7 @@ def _pose_problem(seed, n=300, noise=0.5, outlier_frac=0.2, stereo=True):
     """tests/test_optim.py's synthetic pose problem, drawn with numpy."""
     rng = np.random.default_rng(seed)
     pts = np.concatenate([rng.uniform(-6, 6, (n, 2)), rng.uniform(5, 40, (n, 1))], -1).astype(np.float32)
-    with x64_off:
+    with x64_off():
         cam = RefCam.make(500.0, 500.0, 320.0, 240.0, bf=50.0)
         T_gt = ref_se3.exp(J(np.array([0.3, -0.1, 0.05, 0.02, -0.04, 0.01], np.float32)))
         uvr = np.array(ref_pinhole.stereo_project(cam, T_gt.apply(J(pts))))
@@ -285,7 +308,7 @@ def test_pose_optimize_matches(seed, noise, outlier_frac, stereo, no_valid):
     T_gt, T_init, obs, n_out = _pose_problem(seed, noise=noise, outlier_frac=outlier_frac, stereo=stereo)
     if no_valid:
         obs[4] = np.zeros_like(obs[4])
-    with x64_off:
+    with x64_off():
         cam = RefCam.make(500.0, 500.0, 320.0, 240.0, bf=50.0)
         Tr, inl_r, n_r = ref_pose_opt.pose_optimize(
             cam, RefSE3(*map(J, T_init)), ref_pose_opt.PoseObs(*map(J, obs)))
@@ -355,7 +378,7 @@ def carried():
     keyframe and one more point batch applied by both sides to the same
     carried-across map."""
     rng = np.random.default_rng(11)
-    with x64_off:
+    with x64_off():
         ms = ref_state.allocate(K, NF, M, P)
         for k in range(4):
             f, ur, dp, mp_ids, xi = _kf_inputs(rng, k, int(ms.mp_count[0]))
@@ -409,7 +432,7 @@ def test_insert_create_update_match(carried):
 @pytest.mark.parametrize("ref_slot", [0, 2, 3])
 def test_covisibility_and_window_match(carried, ref_slot):
     _, after, _, _, _, _ = carried
-    with x64_off:
+    with x64_off():
         ms_r = ref_state.MapState(**{k: J(v) for k, v in after.items()})
         cov_r = np.asarray(ref_state.covisibility_row(ms_r, ref_slot))
         win_r = np.asarray(ref_steps.covis_window(ms_r, jnp.int32(ref_slot), 4))
@@ -426,7 +449,7 @@ def test_covisibility_and_window_match(carried, ref_slot):
 def test_gather_local_points_priority_with_point_zero():
     """Point 0 in the reference keyframe's row, with -1 entries after it:
     the reference's scatter lets the last write to index 0 win."""
-    with x64_off:
+    with x64_off():
         ms_r = ref_state.allocate(4, 6, 32, 2)
         ms_r = ms_r._replace(kf_mp=ms_r.kf_mp.at[0].set(jnp.asarray([0, 5, -1, 7, -1, 3]))
                              .at[1].set(jnp.asarray([9, 0, 11, -1, 12, 13])))
@@ -443,7 +466,7 @@ def test_project_match_and_pose_obs_match(carried):
     f = _rand_feats(rng)
     ur = np.where(rng.uniform(size=NF) < 0.7, f[0][:, 0] - 5.0, -1.0).astype(np.float32)
     xi = np.array([0.0, 0.0, 0.5, 0.01, 0.0, 0.0], np.float32)
-    with x64_off:
+    with x64_off():
         ms_r = ref_state.MapState(**{k: J(v) for k, v in after.items()})
         ids_r, mask_r = ref_steps.gather_local_points(ms_r, J(np.array([4, 3, 2, -1], np.int32)), 128)
         cam = RefCam.make(300.0, 300.0, 160.0, 120.0, bf=50.0)

@@ -11,8 +11,31 @@ BA every 3rd, maintenance every 8th: the smoke's full phase, 200 frames).
 Prints the ATE RMSE in cm, the lost-frame count, the keyframe, map-point
 and culled-keyframe counts, and the commit, as one JSON line.
 
+With `--loop` it runs `bench.py --loop`'s world instead (the closed
+circle of `make_billboard_inertial_sequence(closed_loop=True)`, period
+0.8 x the frames, 5 m/s) with bench.py's cadences and a vocabulary
+trained as bench.py trains it (ORB descriptors of every (frames // 10)-th
+left image, k=8, 3 levels, 4 iterations, seed 3), so loop closing and
+relocalization run. It adds the loop figures: relocalizations (attempts
+and fixes), loop queries, loops closed, global-BA runs, map forks and
+merges of the atlas, and the runs of each loop program (BoW add, loop
+detection, Sim3 verification, essential-graph correction, global BA,
+relocalization attempt). `--no-atlas` sets `atlas_enabled=False`.
+
+With `--ring` it runs the board ring instead: a closed circle of 3 m
+driven once every 100 frames (3.6 degrees a frame) inside a ring of 1500 textured boards all
+round it (`vi_slam_tpu_torch.io.synthetic.make_board_ring_loop`, built
+here from the JAX package's own world functions), rendered at 1241x376,
+with bench.py's configuration and the vocabulary trained as for `--loop`.
+Tracking holds all round this circle, and the frames after the first
+period re-see the start, so a loop closes and global BA runs. It adds the
+loop figures as `--loop` does, and the frame on which each loop was
+corrected (the frames dispatched when the correction ends).
+
     JAX_PLATFORMS=cpu python tools/slice_reference_ate.py [--frames 100]
     JAX_PLATFORMS=cpu python tools/slice_reference_ate.py --bench-cadences --frames 200 --flush-at 10
+    JAX_PLATFORMS=cpu python tools/slice_reference_ate.py --loop --frames 200 --flush-at 10 [--no-atlas]
+    JAX_PLATFORMS=cpu python tools/slice_reference_ate.py --ring --frames 120 --flush-at 10 --no-atlas
 
 This is an accuracy figure, not a speed: `chip_smoke.py` holds the port's
 ATE on the GPU to it.
@@ -44,9 +67,12 @@ import jax  # noqa: E402
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", False)
 
+import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
+from vi_slam_tpu.features.extractor import OrbExtractor  # noqa: E402
 from vi_slam_tpu.io import evaluation, synthetic  # noqa: E402
+from vi_slam_tpu.retrieval import vocabulary as voc  # noqa: E402
 from vi_slam_tpu.pipeline.klt_vo import make_stereo_vo  # noqa: E402
 from vi_slam_tpu.utils.config import (  # noqa: E402
     BAConfig, CameraConfig, ExtractorConfig, MapConfig, SystemConfig,
@@ -60,7 +86,7 @@ BF = 386.1448
 NEVER = 10 ** 9  # a keyframe cadence no run reaches
 
 
-def slice_config(bench_cadences: bool = False) -> SystemConfig:
+def slice_config(bench_cadences: bool = False, atlas: bool = True) -> SystemConfig:
     """bench.py's configuration; the keyframe-rate programs off unless
     `bench_cadences`."""
     every = dict(maintenance_every=8, local_ba_every=3, mapping_every=2) if bench_cadences \
@@ -74,8 +100,82 @@ def slice_config(bench_cadences: bool = False) -> SystemConfig:
         map=MapConfig(max_keyframes=256, max_points=65536,
                       max_obs_per_point=8),
         tracker=TrackerConfig(min_frames_between_kf=1, pipeline_depth=3,
-                              **every),
+                              atlas_enabled=atlas, **every),
     )
+
+
+def loop_frames(n_frames: int):
+    """bench.py --loop's world: (landmark world, stereo frames)."""
+    iw, _, frames = synthetic.make_billboard_inertial_sequence(
+        n_frames, FX, FY, CX, CY, W, H, BF, fps=10.0, n_landmarks=2000, n_boards=4000,
+        seed=11, closed_loop=True, closed_loop_period_frames=int(n_frames * 0.8), speed=5.0,
+    )
+    return iw.world, frames
+
+
+RING_PERIOD, RING_RADIUS = 100, 3.0
+
+
+def ring_frames(n_frames: int):
+    """The board ring: (billboard world, stereo frames)."""
+    w_c = 2 * np.pi / (RING_PERIOD / 10.0)
+    iw = synthetic.make_inertial_world(
+        n_frames=n_frames, fps=10.0, n_landmarks=10, seed=11, speed=RING_RADIUS * w_c,
+        closed_loop=True, closed_loop_period_frames=RING_PERIOD)
+    rng = np.random.default_rng(13)
+    nb = 1500
+    ang = rng.uniform(0, 2 * np.pi, nb)
+    rad = rng.uniform(RING_RADIUS + 4, RING_RADIUS + 25, nb)
+    centers = np.stack([RING_RADIUS - rad * np.cos(ang), rng.uniform(-3, 2, nb),
+                        rad * np.sin(ang)], -1)
+    world = synthetic.BillboardWorld(
+        centers=centers, sizes=rng.uniform(0.3, 1.2, nb), intensities=rng.uniform(60, 255, nb),
+        poses_wc=iw.world.poses_wc,
+        textures=rng.uniform(30, 255, (nb, 5, 5)).astype(np.float32))
+    frames = [(synthetic.render_billboard_image(world, T, FX, FY, CX, CY, W, H, baseline=0.0),
+               synthetic.render_billboard_image(world, T, FX, FY, CX, CY, W, H,
+                                                baseline=BF / FX))
+              for T in world.poses_wc[:n_frames]]
+    return world, frames
+
+
+def bench_vocabulary(cfg: SystemConfig, frames):
+    """The vocabulary bench.py --loop trains on the sequence's own ORB
+    descriptors."""
+    ext = OrbExtractor(cfg.extractor, H, W)
+    descs = []
+    for i in range(0, len(frames), max(len(frames) // 10, 1)):
+        f = ext(jnp.asarray(frames[i][0], jnp.float32))
+        descs.append(np.asarray(f.desc)[np.asarray(f.valid)])
+    return voc.train_vocabulary(np.concatenate(descs).astype(np.uint32), k=8, levels=3,
+                                iters=4, seed=3)
+
+
+def count_calls(obj, name, counts, key, success=None):
+    """Wrap obj.name to count its calls (and, with `success`, the calls
+    whose result it accepts) under counts[key]."""
+    fn = getattr(obj, name)
+
+    def wrapped(*a, **kw):
+        out = fn(*a, **kw)
+        counts[key] = counts.get(key, 0) + 1
+        if success is not None and success(out):
+            counts[key + "_ok"] = counts.get(key + "_ok", 0) + 1
+        return out
+
+    setattr(obj, name, wrapped)
+
+
+def instrument_loop(vo, counts):
+    """Count the loop programs of a reference StereoVO with a vocabulary."""
+    lc = vo.loop_closer
+    count_calls(lc, "add_bow", counts, "bow_add")
+    count_calls(type(lc.db), "detect_loop_candidates_fused", counts, "detect")  # every map's db
+    count_calls(lc, "_verify", counts, "verify", success=lambda out: out[0])
+    count_calls(lc, "_correct", counts, "correct")
+    count_calls(vo, "_try_relocalize", counts, "reloc", success=lambda n: n > 0)
+    count_calls(vo, "_create_map_in_atlas", counts, "map_forks")
+    count_calls(vo, "_do_merge", counts, "merges", success=lambda ok: ok)
 
 
 def main():
@@ -87,21 +187,45 @@ def main():
                     help="drain the pipeline before frame N (bench.py and the smoke: 10)")
     ap.add_argument("--perturb", type=int, metavar="SEED",
                     help="move 20 random pixels of each left image by one grey level")
+    ap.add_argument("--loop", action="store_true",
+                    help="bench.py --loop's closed-loop world and vocabulary (bench cadences)")
+    ap.add_argument("--ring", action="store_true",
+                    help="the board ring, where a loop closes (bench cadences, vocabulary)")
+    ap.add_argument("--no-atlas", action="store_true", help="atlas_enabled=False")
     args = ap.parse_args()
+    looped = args.loop or args.ring
     rng = np.random.default_rng(args.perturb) if args.perturb is not None else None
     t0 = time.time()
-    world = synthetic.make_billboard_world(
-        n_frames=args.frames, n_boards=4000, seed=11, speed=1.0
-    )
-    vo = make_stereo_vo(slice_config(args.bench_cadences))
+    cfg = slice_config(args.bench_cadences or looped, atlas=not args.no_atlas)
+    counts = {}
+    loop_frames_at = []
+    if looped:
+        world, frames = (ring_frames if args.ring else loop_frames)(args.frames)
+        vo = make_stereo_vo(cfg, vocab=bench_vocabulary(cfg, frames))
+        instrument_loop(vo, counts)
+        after = vo._after_loop_correction
+
+        def corrected():
+            loop_frames_at.append(vo.frame_id + 1)
+            return after()
+
+        vo._after_loop_correction = corrected
+    else:
+        world = synthetic.make_billboard_world(
+            n_frames=args.frames, n_boards=4000, seed=11, speed=1.0
+        )
+        vo = make_stereo_vo(cfg)
     for i in range(args.frames):
         if i == args.flush_at:
             vo.flush()
-        Twc = world.poses_wc[i]
-        imgL = synthetic.render_billboard_image(
-            world, Twc, FX, FY, CX, CY, W, H, baseline=0.0)
-        imgR = synthetic.render_billboard_image(
-            world, Twc, FX, FY, CX, CY, W, H, baseline=BF / FX)
+        if looped:
+            imgL, imgR = frames[i]
+        else:
+            Twc = world.poses_wc[i]
+            imgL = synthetic.render_billboard_image(
+                world, Twc, FX, FY, CX, CY, W, H, baseline=0.0)
+            imgR = synthetic.render_billboard_image(
+                world, Twc, FX, FY, CX, CY, W, H, baseline=BF / FX)
         if rng is not None:
             imgL = np.array(imgL, np.float32)
             idx = rng.integers(0, imgL.size, 20)
@@ -115,9 +239,11 @@ def main():
         ["git", "rev-parse", "HEAD"], capture_output=True, text=True,
         cwd=os.path.dirname(os.path.abspath(__file__)),
     ).stdout.strip()
-    print(json.dumps({
+    out = {
         "frames": args.frames,
-        "cadences": "bench" if args.bench_cadences else "never",
+        "world": "ring" if args.ring else "loop" if args.loop else "billboard",
+        "atlas": not args.no_atlas,
+        "cadences": "bench" if args.bench_cadences or looped else "never",
         "perturb": args.perturb,
         "flush_at": args.flush_at,
         "ate_cm": ate["rmse"] * 100.0,
@@ -128,7 +254,14 @@ def main():
         "commit": commit,
         "platform": jax.devices()[0].platform,
         "seconds": time.time() - t0,
-    }))
+    }
+    if looped:
+        st = vo.loop_closer.stats
+        out.update(loop_queries=st.n_queries, loops_closed=st.n_loops_closed,
+                   verified=st.n_verified, gba_runs=counts.get("correct", 0),
+                   relocalizations=counts.get("reloc_ok", 0), programs=counts,
+                   loop_frames=loop_frames_at)
+    print(json.dumps(out))
 
 
 if __name__ == "__main__":

@@ -22,8 +22,19 @@ map-point count. Prints one JSON line with:
   * frame 0's pyramid difference per level, and each run's final
     keyframes, map points and ATE.
 
+With `--loop` the world is bench.py --loop's closed circle (200 frames,
+bench.py's cadences, atlas off, the pipeline drained before frame 10 as
+the smoke's loop phase does): the reference and the fed port use the
+reference's vocabulary (trained as bench.py trains it) and the fed port's
+Sim3 and PnP RANSACs get the reference's draws; the own port trains its
+vocabulary from its own descriptors and draws its own samples. The line
+then adds each run's loop figures (queries, loops closed, relocalized
+frames, the frames where loops close) and the first frame where the lost
+or tracked state differs.
+
     JAX_PLATFORMS=cpu python tools/torch_parity_report.py [--frames 100]
     JAX_PLATFORMS=cpu python tools/torch_parity_report.py --bench-cadences --frames 200
+    JAX_PLATFORMS=cpu python tools/torch_parity_report.py --loop --frames 200
 """
 
 import argparse
@@ -36,6 +47,7 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 sys.path.insert(0, os.path.join(ROOT, "tools"))
+sys.path.insert(0, os.path.join(ROOT, "tests"))
 
 import jax  # noqa: E402
 
@@ -47,7 +59,9 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 import chip_smoke  # noqa: E402
+from slice_reference_ate import bench_vocabulary, instrument_loop, loop_frames  # noqa: E402
 from slice_reference_ate import slice_config as ref_slice_config  # noqa: E402
+from test_torch_loop_parts import ReferenceDraws  # noqa: E402
 from vi_slam_tpu.io import evaluation as ref_evaluation  # noqa: E402
 from vi_slam_tpu.ops import pyramid as ref_pyr  # noqa: E402
 from vi_slam_tpu.pipeline.klt_vo import make_stereo_vo as ref_make_stereo_vo  # noqa: E402
@@ -56,6 +70,7 @@ from vi_slam_tpu_torch.io import synthetic  # noqa: E402
 from vi_slam_tpu_torch.ops import orb  # noqa: E402
 from vi_slam_tpu_torch.ops import pyramid as pyr_ops  # noqa: E402
 from vi_slam_tpu_torch.pipeline.stereo_vo import make_stereo_vo  # noqa: E402
+from vi_slam_tpu_torch.retrieval import vocabulary  # noqa: E402
 from vi_slam_tpu_torch.utils.config import config_from_dict  # noqa: E402
 
 
@@ -147,27 +162,71 @@ def first_departure(ref, other, n):
     return None
 
 
+def port_vocabulary(ref_vocab):
+    """The reference's vocabulary as the port's."""
+    return vocabulary.Vocabulary(
+        node_bits=torch.from_numpy(np.asarray(ref_vocab.node_bits)),
+        idf=torch.from_numpy(np.asarray(ref_vocab.idf)), k=ref_vocab.k, levels=ref_vocab.levels)
+
+
+def own_vocabulary(port_cfg, frames):
+    """bench.py's vocabulary trained from the port's own descriptors."""
+    from vi_slam_tpu_torch.features.extractor import OrbExtractor
+
+    ext = OrbExtractor(port_cfg.extractor, chip_smoke.H, chip_smoke.W, device="cpu")
+    descs = []
+    for i in range(0, len(frames), max(len(frames) // 10, 1)):
+        f, _ = ext.extract(torch.from_numpy(np.asarray(frames[i][0], np.float32)))
+        descs.append(f.desc[f.valid])
+    return vocabulary.train_vocabulary(torch.cat(descs), k=8, levels=3, iters=4, seed=3)
+
+
+def loop_events(vo, out):
+    """Record the frames dispatched when each loop closes."""
+    after = vo._after_loop_correction
+
+    def wrapped():
+        out.append(len(vo.records))
+        return after()
+
+    vo._after_loop_correction = wrapped
+
+
+def state_departure(ref, other):
+    for f, (a, b) in enumerate(zip(ref.records, other.records)):
+        if a.state != b.state:
+            return {"frame": f, "ref": a.state, "port": b.state}
+    return None
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=100)
     ap.add_argument("--bench-cadences", action="store_true",
                     help="bench.py's mapping/local-BA/maintenance cadences, over the"
                          " full phase's 200-frame world")
+    ap.add_argument("--loop", action="store_true",
+                    help="bench.py --loop's world with a vocabulary, atlas off")
     args = ap.parse_args()
     n = args.frames
     t0 = time.time()
     W, H = chip_smoke.W, chip_smoke.H
-    n_world = chip_smoke.N_FULL_FRAMES if args.bench_cadences else chip_smoke.N_FRAMES
-    world = synthetic.make_billboard_world(n_frames=n_world, n_boards=4000, seed=11, speed=1.0)
-    frames = chip_smoke.render_frames(world, n)
+    if args.loop:
+        world, frames = loop_frames(n)
+        n_world = n
+    else:
+        n_world = chip_smoke.N_FULL_FRAMES if args.bench_cadences else chip_smoke.N_FRAMES
+        world = synthetic.make_billboard_world(n_frames=n_world, n_boards=4000, seed=11, speed=1.0)
+        frames = chip_smoke.render_frames(world, n)
     left0 = frames[0][0].astype(np.uint8).astype(np.float32)
 
-    ref_cfg = ref_slice_config(args.bench_cadences)
+    ref_cfg = ref_slice_config(args.bench_cadences or args.loop, atlas=not args.loop)
     port_cfg = config_from_dict(dataclasses.asdict(ref_cfg))
+    ref_vocab = bench_vocabulary(ref_cfg, frames) if args.loop else None
 
     # the reference, with the features of each frame captured
     ref_feats, ref_stats = [], {}
-    ref = ref_make_stereo_vo(ref_cfg)
+    ref = ref_make_stereo_vo(ref_cfg, vocab=ref_vocab)
     frame_fn, extract_fn = ref._frame_fn, ref._extract_pair_fn
 
     def ref_frame(*a):
@@ -184,7 +243,8 @@ def main():
     record_frames(ref, ref_stats)
 
     own_feats, own_stats = [], {}
-    own = make_stereo_vo(port_cfg, device="cpu")
+    own = make_stereo_vo(port_cfg, device="cpu",
+                         vocab=own_vocabulary(port_cfg, frames) if args.loop else None)
     own_extract = own._extract_pair
 
     def own_capture(imgs):
@@ -196,7 +256,17 @@ def main():
     record_frames(own, own_stats)
 
     fed_stats = {}
-    fed = make_stereo_vo(port_cfg, device="cpu")
+    fed = make_stereo_vo(port_cfg, device="cpu",
+                         vocab=port_vocabulary(ref_vocab) if args.loop else None)
+    if args.loop:
+        fed.loop_closer.draw = ReferenceDraws(7)
+        fed.relocalizer.draw = ReferenceDraws(11)
+    closes = {"ref": [], "own": [], "fed": []}
+    ref_counts = {}
+    if args.loop:
+        instrument_loop(ref, ref_counts)
+        for name, vo in (("ref", ref), ("own", own), ("fed", fed)):
+            loop_events(vo, closes[name])
     fed_queue = iter(ref_feats)
 
     def fed_extract(imgs):
@@ -209,6 +279,9 @@ def main():
     record_frames(fed, fed_stats)
 
     for i, (imgL, imgR) in enumerate(frames):
+        if args.loop and i == chip_smoke.N_WARM:
+            for vo in (ref, own, fed):
+                vo.flush()
         ref.process_stereo(imgL, imgR, i * 0.1)
         own.process_stereo(imgL, imgR, i * 0.1)
         fed.process_stereo(imgL, imgR, i * 0.1)
@@ -238,12 +311,21 @@ def main():
 
     def summary(name, vo):
         ate = ref_evaluation.ate_rmse(trajs[name][:, :3, 3], world.poses_wc[:n, :3, 3])
-        return {"keyframes": vo.n_kf, "map_points": vo.n_mp, "ate_cm": ate["rmse"] * 100.0,
-                "lost": sum(1 for r in vo.records if r.state != "OK")}
+        out = {"keyframes": vo.n_kf, "map_points": vo.n_mp, "ate_cm": ate["rmse"] * 100.0,
+               "lost": sum(1 for r in vo.records if r.state != "OK")}
+        if args.loop:
+            st = vo.loop_closer.stats
+            out.update(loop_queries=st.n_queries, loops_closed=st.n_loops_closed,
+                       loops_closed_after_frames=closes[name],
+                       relocalized=ref_counts.get("reloc_ok", 0) if vo is ref else vo.n_relocalized)
+        return out
 
     print(json.dumps({
-        "world": f"{W}x{H}, {n} frames of the {n_world}-frame world, cadences"
-                 f" {'bench' if args.bench_cadences else 'off'}, CPU",
+        "world": f"{W}x{H}, {n} frames of the {n_world}-frame"
+                 f" {'loop' if args.loop else 'billboard'} world, cadences"
+                 f" {'bench' if args.bench_cadences or args.loop else 'off'}, CPU",
+        "first_state_departure_own": state_departure(ref, own) if args.loop else None,
+        "first_state_departure_fed": state_departure(ref, fed) if args.loop else None,
         "first_departure_own": own_dep,
         "first_departure_fed": fed_dep,
         "features_at_own_departure": at,

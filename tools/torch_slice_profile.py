@@ -13,6 +13,18 @@ keyframe-rate program (mapping pass, local BA, maintenance). Prints:
   * the top operations by device time.
 
     python3 tools/torch_slice_profile.py [--frames 20] [--warm 10] [--bench-cadences]
+    python3 tools/torch_slice_profile.py --reloc [--frames 200]
+
+With `--reloc` it runs `chip_smoke.py`'s loop phase instead (bench.py
+--loop's world and vocabulary, atlas off; the tracking fails on many of
+its frames, and each lost frame attempts a relocalization), without the
+profiler, and splits the relocalization attempts into their steps: the
+frame's BoW vector, the database query, and per candidate the matching,
+the PnP RANSAC and the pose Gauss-Newton (the runs of the last two count
+the candidates solved). Each step prints its host ms (the time to
+dispatch it, on the host's clock) and its device span (CUDA events around
+it), summed and per attempt; "rest" is the attempt's host time outside
+the steps: its waits for each candidate's counts, and glue.
 """
 
 import argparse
@@ -28,7 +40,10 @@ from torch.profiler import ProfilerActivity, profile, record_function  # noqa: E
 
 import chip_smoke  # noqa: E402
 from vi_slam_tpu_torch.io import synthetic  # noqa: E402
+from vi_slam_tpu_torch.pipeline import relocalization  # noqa: E402
 from vi_slam_tpu_torch.pipeline.stereo_vo import make_stereo_vo  # noqa: E402
+from vi_slam_tpu_torch.retrieval import vocabulary  # noqa: E402
+from vi_slam_tpu_torch.utils.timing import ProgramTimer  # noqa: E402
 
 STAGES = ("_extract_pair", "_track", "_create_kf_body", "_mapping_pass", "_local_ba_program",
           "_maintenance_program")
@@ -46,15 +61,88 @@ def instrument(vo):
         setattr(vo, name, wrapped)
 
 
+def timed(obj, name, timer, step, inside):
+    """Wrap obj.name in a span of `timer` named `step`, taken only while
+    inside[0] is set (inside a relocalization attempt); the step "attempt"
+    sets it."""
+    fn = getattr(obj, name)
+
+    def wrapped(*a, **kw):
+        if step != "attempt" and not inside[0]:
+            return fn(*a, **kw)
+        inside[0] = True
+        try:
+            with timer.span(step):
+                return fn(*a, **kw)
+        finally:
+            inside[0] = step != "attempt"
+
+    setattr(obj, name, wrapped)
+
+
+RELOC_STEPS = ("bow_transform", "bow_vectors", "db_query", "match", "pnp_ransac", "pose_gn")
+
+
+def reloc_profile(n_frames: int) -> None:
+    """The loop phase's run with each relocalization step timed."""
+    import dataclasses
+
+    _, frames = chip_smoke.loop_world_frames()
+    frames = frames[:n_frames]
+    cfg = chip_smoke.slice_config(bench_cadences=True)
+    cfg = cfg.replace(tracker=dataclasses.replace(cfg.tracker, atlas_enabled=False))
+    vocab = chip_smoke.train_loop_vocabulary(cfg, frames)
+    vo = make_stereo_vo(cfg, vocab=vocab)
+    steps, inside = ProgramTimer("cuda"), [False]
+    timed(vocabulary, "transform", steps, "bow_transform", inside)
+    timed(vocabulary, "bow_vectors", steps, "bow_vectors", inside)
+    timed(vo.loop_closer.db, "detect_reloc_candidates", steps, "db_query", inside)
+    timed(relocalization, "_match_frame_to_kf", steps, "match", inside)
+    timed(relocalization, "pnp_ransac_core", steps, "pnp_ransac", inside)
+    timed(relocalization.pose_opt, "pose_optimize", steps, "pose_gn", inside)
+    timed(vo, "_try_relocalize", steps, "attempt", inside)
+    t0 = time.perf_counter()
+    for i, (imgL, imgR) in enumerate(frames):
+        vo.process_stereo(imgL, imgR, i * 0.1)
+    vo.flush()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    dev = steps.device_ms()
+    n = max(steps.runs.get("attempt", 0), 1)
+    host = {k: v * 1e3 for k, v in steps.host_s.items()}
+    host["rest"] = host.get("attempt", 0.0) - sum(host.get(k, 0.0) for k in RELOC_STEPS)
+    print(f"device: {torch.cuda.get_device_name(0)}")
+    print(f"frames {len(frames)}: wall {wall_s:.3f} s, lost"
+          f" {sum(1 for r in vo.records if r.state != 'OK')}, relocalization attempts"
+          f" {steps.runs.get('attempt', 0)}, relocalized {vo.n_relocalized}")
+    out = {}
+    for name in ("attempt",) + RELOC_STEPS + ("rest",):
+        runs = steps.runs.get(name, 0)
+        out[name] = dict(runs=runs, host_ms=host.get(name, 0.0), device_ms=dev.get(name))
+        span = "" if name == "rest" else (
+            f", device span {dev.get(name, 0.0):.2f} ms ({dev.get(name, 0.0) / n:.3f} ms an"
+            " attempt)")
+        print(f"{name}: runs {runs}, host {host.get(name, 0.0):.2f} ms"
+              f" ({host.get(name, 0.0) / n:.3f} ms an attempt){span}")
+    print("rest: the attempt's host time outside the steps (the host's wait for each"
+          " candidate's counts, and the glue)")
+    print(json.dumps({"wall_s": wall_s, "attempts": steps.runs.get("attempt", 0), "steps": out}))
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=20)
     ap.add_argument("--warm", type=int, default=10)
     ap.add_argument("--bench-cadences", action="store_true",
                     help="mapping, local BA and maintenance at bench.py's cadences (2/3/8)")
+    ap.add_argument("--reloc", action="store_true",
+                    help="the loop phase's run, relocalization attempts split by step")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("torch_slice_profile: needs a CUDA device")
+    if args.reloc:
+        reloc_profile(args.frames if args.frames != 20 else chip_smoke.N_FULL_FRAMES)
+        return
     n = args.warm + args.frames
     world = synthetic.make_billboard_world(n_frames=n, n_boards=4000, seed=11, speed=1.0)
     frames = chip_smoke.render_frames(world, n)

@@ -1,13 +1,16 @@
 """Bundle adjustment with an explicit Schur complement over the landmark
-blocks — a PyTorch copy of the dense path of the JAX package's
-`optim/local_ba.py` (local BA over a covisibility window).
+blocks — a PyTorch copy of the JAX package's `optim/local_ba.py`: the
+dense assembly of local BA over a covisibility window, and the scatter
+assembly of whole-map (global) BA.
 
 Observations are grouped per landmark in (M, P) slots with masks. Each
-landmark's 3x3 block is inverted; the camera-camera coupling goes through
-the dense per-landmark matrix U (M, K, 6, 3), so the reduced camera
-system S = H_cc - sum_m U H_pp^-1 U^T is a few batched products. Fixed
-cameras get zero rows and columns and an identity diagonal. The 6K x 6K
-reduced system is a dense solve. Iterations are Levenberg-Marquardt with
+landmark's 3x3 block is inverted. With assembly="dense" the camera-camera
+coupling goes through the per-landmark matrix U (M, K, 6, 3), so the
+reduced camera system S = H_cc - sum_m U H_pp^-1 U^T is a few batched
+products; assembly="scatter" adds per-observation-pair 6x6 blocks into
+(K, K, 6, 6) instead, which keeps the memory O(K^2 + M P^2) at map scale.
+Fixed cameras get zero rows and columns and an identity diagonal. The
+6K x 6K reduced system is a dense solve. Iterations are Levenberg-Marquardt with
 accept/reject on the robust cost, or damped Gauss-Newton; the accept
 decision stays on the device, so a run never waits for the host.
 
@@ -88,6 +91,22 @@ def _robust_cost_and_weights(r, row_mask, prob: BAProblem, use_huber: bool):
     return chi2, w, cost
 
 
+def _landmark_inverses(Hpp: torch.Tensor, lam: torch.Tensor, row_mask: torch.Tensor) -> torch.Tensor:
+    """(Hpp + lam I + 1e-9 I)^-1 per landmark, zero for a landmark without
+    observations. The reference inverts with jnp.linalg.inv, whose rows
+    are non-finite where its float32 LU meets a zero pivot (a far point
+    with one or two observations). That is mirrored: the NaN then spreads
+    through S, a sum over the landmarks, so the step keeps the cameras
+    (dxc's isfinite guard) and that landmark."""
+    eye3 = torch.eye(3, dtype=Hpp.dtype, device=Hpp.device)
+    Hpp_d = Hpp + lam * eye3 + 1e-9 * eye3
+    Hpp_inv = torch.linalg.inv_ex(Hpp_d)[0]  # inv_ex: no host sync for the error check
+    singular = torch.any(lu3_pivots(Hpp_d) == 0, dim=-1)
+    Hpp_inv = torch.where(singular[:, None, None], torch.full_like(Hpp_inv, float("nan")), Hpp_inv)
+    has_obs = torch.sum(row_mask[..., 0], dim=1) > 0
+    return torch.where(has_obs[:, None, None], Hpp_inv, torch.zeros_like(Hpp_inv))
+
+
 def _visual_reduced_system(cam: CameraParams, poses: SE3, points: torch.Tensor,
                            prob: BAProblem, lam: torch.Tensor, use_huber: bool):
     """Schur-reduce the landmark blocks. Returns (S (K, K, 6, 6) reduced
@@ -115,18 +134,7 @@ def _visual_reduced_system(cam: CameraParams, poses: SE3, points: torch.Tensor,
     bc = torch.einsum("mpk,mpi->ki", onehot, bc_obs)
     U = torch.einsum("mpk,mpij->mkij", onehot, Wcp)
 
-    eye3 = torch.eye(3, dtype=r.dtype, device=r.device)
-    Hpp_d = Hpp + lam * eye3 + 1e-9 * eye3
-    Hpp_inv = torch.linalg.inv_ex(Hpp_d)[0]  # inv_ex: no host sync for the error check
-    # The reference inverts with jnp.linalg.inv, whose rows are non-finite
-    # where its float32 LU meets a zero pivot (a far point with one or two
-    # observations). Mirror that: the NaN then spreads through S, a sum over
-    # every landmark, so the step keeps the cameras (dxc's isfinite guard)
-    # and that landmark.
-    singular = torch.any(lu3_pivots(Hpp_d) == 0, dim=-1)
-    Hpp_inv = torch.where(singular[:, None, None], torch.full_like(Hpp_inv, float("nan")), Hpp_inv)
-    has_obs = torch.sum(row_mask[..., 0], dim=1) > 0
-    Hpp_inv = torch.where(has_obs[:, None, None], Hpp_inv, torch.zeros_like(Hpp_inv))
+    Hpp_inv = _landmark_inverses(Hpp, lam, row_mask)
 
     Y = torch.einsum("mkis,msj->mkij", U, Hpp_inv)
     S_red = torch.einsum("mkis,mljs->klij", Y, U)
@@ -144,11 +152,65 @@ def back_substitute_points(U, Hpp_inv, bp, dxc):
     return torch.where(torch.isfinite(dxp), dxp, torch.zeros_like(dxp))
 
 
+def _visual_reduced_system_scatter(cam: CameraParams, poses: SE3, points: torch.Tensor,
+                                   prob: BAProblem, lam: torch.Tensor, use_huber: bool):
+    """Schur reduction with scatter-add assembly, for whole-map problems.
+    Returns (S, b, Wcp (M, P, 6, 3), Hpp_inv, bp, cidx (M, P))."""
+    K = poses.t.shape[0]
+    M, P = prob.obs_cam.shape
+    r, J_cam, J_pt, row_mask = _residuals(cam, poses, points, prob)
+    _, w, _ = _robust_cost_and_weights(r, row_mask, prob, use_huber)
+    Jc = J_cam * row_mask[..., None]
+    Jp = J_pt * row_mask[..., None]
+    rm = r * row_mask
+
+    Hpp = torch.einsum("mpki,mpkj,mp->mij", Jp, Jp, w)
+    bp = torch.einsum("mpki,mpk,mp->mi", Jp, rm, w)
+    Wcp = torch.einsum("mpki,mpkj,mp->mpij", Jc, Jp, w)
+    Hcc_obs = torch.einsum("mpki,mpkj,mp->mpij", Jc, Jc, w)
+    bc_obs = torch.einsum("mpki,mpk,mp->mpi", Jc, rm, w)
+
+    # masked observations carry all-zero blocks, so clipped indices add
+    # nothing (a NaN inverse still reaches camera 0, as in the reference)
+    cidx = torch.clamp(prob.obs_cam.long(), 0, K - 1)
+    flat = cidx.reshape(-1)
+    dt = r.dtype
+    Hcc_diag = torch.zeros((K, 6, 6), dtype=dt, device=r.device).index_add_(
+        0, flat, Hcc_obs.reshape(-1, 6, 6))
+    bc = torch.zeros((K, 6), dtype=dt, device=r.device).index_add_(0, flat, bc_obs.reshape(-1, 6))
+    Hpp_inv = _landmark_inverses(Hpp, lam, row_mask)
+
+    Y = torch.einsum("mpis,mst->mpit", Wcp, Hpp_inv)
+    S_red = torch.zeros((K * K, 6, 6), dtype=dt, device=r.device)
+    b_corr = torch.zeros((K, 6), dtype=dt, device=r.device)
+    for p in range(P):
+        for q in range(P):
+            S_red.index_add_(0, cidx[:, p] * K + cidx[:, q],
+                             torch.einsum("mis,mjs->mij", Y[:, p], Wcp[:, q]))
+        b_corr.index_add_(0, cidx[:, p], torch.einsum("mis,ms->mi", Y[:, p], bp))
+    S = -S_red.reshape(K, K, 6, 6)
+    ar = torch.arange(K, device=r.device)
+    S[ar, ar] += Hcc_diag
+    return S, bc - b_corr, Wcp, Hpp_inv, bp, cidx
+
+
+def back_substitute_points_scatter(Wcp, Hpp_inv, bp, dxc, cidx):
+    """Landmark updates without U: each observation's camera update is
+    gathered and contracted per landmark."""
+    Ut_dxc = torch.einsum("mpis,mpi->ms", Wcp, dxc[cidx])
+    dxp = torch.einsum("mij,mj->mi", Hpp_inv, -bp - Ut_dxc)
+    return torch.where(torch.isfinite(dxp), dxp, torch.zeros_like(dxp))
+
+
 def _build_and_solve(cam: CameraParams, poses: SE3, points: torch.Tensor, prob: BAProblem,
-                     lam: torch.Tensor, use_huber: bool):
+                     lam: torch.Tensor, use_huber: bool, assembly: str = "dense"):
     """One LM system build and Schur solve: (dxc (K, 6), dxp (M, 3))."""
     K = poses.t.shape[0]
-    S, b, U, Hpp_inv, bp = _visual_reduced_system(cam, poses, points, prob, lam, use_huber)
+    if assembly == "scatter":
+        S, b, Wcp, Hpp_inv, bp, cidx = _visual_reduced_system_scatter(
+            cam, poses, points, prob, lam, use_huber)
+    else:
+        S, b, U, Hpp_inv, bp = _visual_reduced_system(cam, poses, points, prob, lam, use_huber)
     dt = S.dtype
     eye6 = torch.eye(6, dtype=dt, device=S.device)
     ar = torch.arange(K, device=S.device)
@@ -162,11 +224,13 @@ def _build_and_solve(cam: CameraParams, poses: SE3, points: torch.Tensor, prob: 
     # a plain dense solve; solve_ex skips the error check's host sync
     dxc = -torch.linalg.solve_ex(S_dense, b.reshape(K * 6, 1))[0].reshape(K, 6)
     dxc = torch.where(torch.isfinite(dxc), dxc, torch.zeros_like(dxc))
+    if assembly == "scatter":
+        return dxc, back_substitute_points_scatter(Wcp, Hpp_inv, bp, dxc, cidx)
     return dxc, back_substitute_points(U, Hpp_inv, bp, dxc)
 
 
 def _ba_core(cam: CameraParams, prob: BAProblem, iters: int, use_huber: bool, lam0: float,
-             strategy: str = "lm") -> BAResult:
+             strategy: str = "lm", assembly: str = "dense") -> BAResult:
     """The LM (or damped Gauss-Newton) loop; `iters` steps, unrolled."""
     dt = prob.points.dtype
     dev = prob.points.device
@@ -183,7 +247,7 @@ def _ba_core(cam: CameraParams, prob: BAProblem, iters: int, use_huber: bool, la
         lam = torch.full((), max(lam0, 1e-3), dtype=dt, device=dev)
         init_cost = cost
         for _ in range(iters):
-            dxc, dxp = _build_and_solve(cam, poses, points, prob, lam, use_huber)
+            dxc, dxp = _build_and_solve(cam, poses, points, prob, lam, use_huber, assembly)
             poses = se3.retract_left(poses, dxc)
             points = points + dxp
             costs.append(cost)
@@ -191,7 +255,7 @@ def _ba_core(cam: CameraParams, prob: BAProblem, iters: int, use_huber: bool, la
         lam = torch.full((), lam0, dtype=dt, device=dev)
         cost = init_cost = cost_at(poses, points)
         for _ in range(iters):
-            dxc, dxp = _build_and_solve(cam, poses, points, prob, lam, use_huber)
+            dxc, dxp = _build_and_solve(cam, poses, points, prob, lam, use_huber, assembly)
             cand_poses = se3.retract_left(poses, dxc)
             cand_points = points + dxp
             cand_cost = cost_at(cand_poses, cand_points)
@@ -214,7 +278,8 @@ def _ba_core(cam: CameraParams, prob: BAProblem, iters: int, use_huber: bool, la
 
 
 def bundle_adjust(cam: CameraParams, prob: BAProblem, iters: int = 10, use_huber: bool = True,
-                  lam0: float = 1e-4) -> BAResult:
+                  lam0: float = 1e-4, assembly: str = "dense") -> BAResult:
     """Levenberg-Marquardt bundle adjustment over poses and points; fixed
-    cameras and invalid points and observations are masked out."""
-    return _ba_core(cam, prob, iters, use_huber, lam0)
+    cameras and invalid points and observations are masked out. Use
+    assembly="scatter" for whole-map problems."""
+    return _ba_core(cam, prob, iters, use_huber, lam0, assembly=assembly)

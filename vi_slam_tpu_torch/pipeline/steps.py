@@ -1,8 +1,9 @@
 """Device steps of the stereo pipeline — a PyTorch copy of the functions
 of the JAX package's `pipeline/steps.py` that the main path calls: the
-per-frame tracking steps, and at keyframe rate the mapping pass (fuse +
-triangulate) and local BA's gather and scatter. None of them syncs with
-the host."""
+per-frame tracking steps, at keyframe rate the mapping pass (fuse +
+triangulate) and local BA's gather and scatter, and after a loop
+correction global BA's gather and scatter. None of them syncs with the
+host."""
 
 from __future__ import annotations
 
@@ -464,3 +465,45 @@ def scatter_ba_result(state: MapState, window_kfs: torch.Tensor, window_fixed: t
     updp = (mp_ids >= 0) & state.mp_valid[ids_safe.long()]
     map_state._scatter_set_(state.mp_pos, ids_safe, points, updp)
     return state
+
+
+def gather_global_ba_problem(cam: CameraParams, state: MapState,
+                             scale_factor: float = 1.2) -> BAProblem:
+    """The whole map as a BAProblem: camera index = keyframe slot, every
+    map point a landmark, observations straight from the incidence
+    arrays. Slot 0 (the origin keyframe) and the free slots are fixed."""
+    K, N = state.kf_mp.shape
+    fixed = ~state.kf_valid
+    fixed[0] = True
+    obs_kf = state.mp_obs_kf
+    okf_safe = torch.clamp(obs_kf, 0, K - 1).long()
+    oidx_safe = torch.clamp(state.mp_obs_idx, 0, N - 1).long()
+    obs_has = (obs_kf >= 0) & state.kf_valid[okf_safe]
+    uv = state.kf_xy[okf_safe, oidx_safe]
+    ur = state.kf_uright[okf_safe, oidx_safe]
+    lvl = state.kf_level[okf_safe, oidx_safe]
+    stereo = ur > 0
+    uvr = torch.cat([uv, torch.where(stereo, ur, torch.zeros_like(ur))[..., None]], dim=-1)
+    return BAProblem(
+        poses=SE3(state.kf_R.clone(), state.kf_t.clone()),
+        fixed=fixed,
+        points=state.mp_pos.clone(),
+        point_valid=state.mp_valid.clone(),
+        obs_cam=torch.where(obs_has, okf_safe, torch.zeros_like(okf_safe)).to(torch.int32),
+        obs_uvr=uvr,
+        obs_stereo=stereo,
+        obs_sigma2=torch.pow(scale_factor, 2.0 * lvl.to(torch.float32)),
+        obs_mask=obs_has & state.mp_valid[:, None],
+    )
+
+
+def scatter_global_ba_result(state: MapState, poses: SE3, points: torch.Tensor) -> MapState:
+    """Write whole-map BA results back: the poses of the live keyframes
+    but slot 0, and the positions of the live points."""
+    upd_kf = state.kf_valid.clone()
+    upd_kf[0] = False
+    return state._replace(
+        kf_R=torch.where(upd_kf[:, None, None], poses.R, state.kf_R),
+        kf_t=torch.where(upd_kf[:, None], poses.t, state.kf_t),
+        mp_pos=torch.where(state.mp_valid[:, None], points, state.mp_pos),
+    )

@@ -1,6 +1,5 @@
 """Stereo visual odometry: the host state machine over the device programs
-— a PyTorch copy of the JAX package's `pipeline/stereo_vo.py::StereoVO`
-on the main path.
+— a PyTorch copy of the JAX package's `pipeline/stereo_vo.py::StereoVO`.
 
 Per frame, `_frame` extracts ORB features from both images, associates
 them along the scanlines, tracks the local map (covisibility window,
@@ -9,7 +8,9 @@ keyframe. All host-relevant numbers come back in one packed float32
 vector, copied to pinned host memory without blocking. The host keeps a
 `pipeline_depth`-deep queue of frames in flight and finalizes the oldest,
 so its bookkeeping (records, states, keyframe counts) happens on the same
-frames as in the reference.
+frames as in the reference. `process_oracle` is the synchronous path for
+given keypoints (tests without the image frontend); it decides keyframes
+on the host.
 
 At keyframe rate the host runs, on the reference's cadences, the mapping
 pass (fuse with covisible neighbours, stereo triangulation against the
@@ -19,17 +20,26 @@ them waits for the device: local BA's correction of the live pose chain
 is composed on the device, and a cull's bookkeeping comes back with a
 later frame's pull. `trajectory_wc` walks past culled reference keyframes.
 
+Given a vocabulary, the system also closes loops and relocalizes. Each
+new keyframe's BoW vector enters the place-recognition database at once;
+its map-point row is copied to the host without blocking, and the loop
+query for it runs one keyframe later (`_loop_closing`), as the
+reference's loop-closing thread lags its mapping. A verified loop drains
+the frames in flight, corrects the map (essential graph and global BA)
+and re-anchors the live pose on the corrected reference keyframe. A
+failed frame first tries to relocalize against the database; otherwise
+it degrades OK -> RECENTLY_LOST -> LOST.
+
+A young map (< 10 keyframes) that gets lost, and a timestamp that jumps
+backwards or too far, reset the system. Where the reference would instead
+fork a new map in its atlas, the port raises: the atlas is a later slice.
+
 The reference's two `lax.cond`s (the wide-radius retry and the keyframe
 creation) become host branches here, which read one device scalar each.
-A map reset (a lost young map, or a timestamp jump) is not ported: it
-raises. Relocalization and the atlas need a place-recognition vocabulary;
-like the reference constructed without one, the port has neither, and a
-failed frame degrades OK -> RECENTLY_LOST -> LOST.
 """
 
 from __future__ import annotations
 
-import time
 from collections import deque
 from dataclasses import dataclass
 from typing import Dict, List, NamedTuple, Optional, Tuple
@@ -47,10 +57,14 @@ from vi_slam_tpu_torch.ops import stereo as stereo_ops
 from vi_slam_tpu_torch.ops.fast import top_k
 from vi_slam_tpu_torch.optim import local_ba, pose_opt
 from vi_slam_tpu_torch.pipeline import steps
+from vi_slam_tpu_torch.pipeline.loop_closing import LoopCloser
+from vi_slam_tpu_torch.pipeline.relocalization import Relocalizer
+from vi_slam_tpu_torch.retrieval import vocabulary as voc
 from vi_slam_tpu_torch.slam_map import state as map_state
 from vi_slam_tpu_torch.utils.config import SystemConfig
 from vi_slam_tpu_torch.utils.device import resolve_device
 from vi_slam_tpu_torch.utils.numerics import norm3_f32
+from vi_slam_tpu_torch.utils.timing import ProgramTimer
 
 NOT_INITIALIZED = "NOT_INITIALIZED"
 OK = "OK"
@@ -89,10 +103,12 @@ class FrameJob:
 
     frame_id: int
     timestamp: float
+    ref_kf: int  # host reference keyframe at dispatch
     bundle: Optional[TrackBundle]
     feats: Features
     uright: torch.Tensor
     depth: torch.Tensor
+    fused: bool = False  # the keyframe decision ran inside the frame program
     packed_host: Optional[torch.Tensor] = None  # pinned copy of bundle.packed
     copied: Optional[torch.cuda.Event] = None  # set when packed_host is filled
 
@@ -116,10 +132,36 @@ class TrackStats:
     state: str = OK
 
 
+ATLAS_SLICE = "the atlas (multi-map fork and merge) comes in a later slice of the port"
+
+
+def make_oracle_features(n: int, xy, uright, depth, desc, level, device="cpu"):
+    """Pad given keypoint arrays into a fixed-capacity Features batch and
+    its (u_right, depth): the first min(len, n) entries are valid."""
+    cnt = min(len(xy), n)
+
+    def pad(a, shape, fill, dtype):
+        out = np.full(shape, fill, dtype)
+        out[:cnt] = np.asarray(a)[:cnt]
+        return torch.from_numpy(out).to(device)
+
+    valid = np.zeros((n,), bool)
+    valid[:cnt] = True
+    feats = Features(
+        xy=pad(xy, (n, 2), 0.0, np.float32),
+        level=pad(level, (n,), 0, np.int32),
+        angle=torch.zeros((n,), dtype=torch.float32, device=device),
+        score=pad(np.ones(cnt), (n,), 0.0, np.float32),
+        desc=pad(np.asarray(desc, np.uint32).view(np.int32), (n, 8), 0, np.int32),
+        valid=torch.from_numpy(valid).to(device),
+    )
+    return feats, pad(uright, (n,), -1.0, np.float32), pad(depth, (n,), -1.0, np.float32)
+
+
 class StereoVO:
     """Stereo VO over the array map, on one device."""
 
-    def __init__(self, cfg: SystemConfig, device="cuda"):
+    def __init__(self, cfg: SystemConfig, device="cuda", vocab: Optional[voc.Vocabulary] = None):
         if cfg.camera.model != "pinhole":
             raise NotImplementedError(
                 f"camera model {cfg.camera.model!r}: the port has the pinhole model only"
@@ -147,13 +189,19 @@ class StereoVO:
         # time), the hops trajectory_wc walks past culled reference keyframes
         self.culled_parent: Dict[int, Tuple[int, np.ndarray]] = {}
         self._pending_culls: List[Tuple[torch.Tensor, Optional[torch.cuda.Event]]] = []
-        # keyframe-rate programs: runs, and host seconds spent dispatching them
-        self.program_runs = {"mapping": 0, "local_ba": 0, "maintenance": 0}
-        self.program_host_s = {"mapping": 0.0, "local_ba": 0.0, "maintenance": 0.0}
+        # keyframe-rate programs and relocalization attempts: runs, host
+        # seconds spent dispatching them, device spans on the card
+        self.timer = ProgramTimer(dev, ("mapping", "local_ba", "maintenance", "reloc"))
+        self.program_runs = self.timer.runs
+        self.program_host_s = self.timer.host_s
         self.state = NOT_INITIALIZED
         self.ref_kf = -1
         self.frame_id = -1
+        self.frames_since_kf = 0
+        self._ref_kf_tracked = 0
         self.records: List[FrameRecord] = []
+        self.stats: List[TrackStats] = []
+        self.n_relocalized = 0  # frames recovered by relocalization
         self.T_dev = SE3.identity(device=dev)
         self.vel_dev = SE3.identity(device=dev)
         self.T_np = np.eye(4)
@@ -172,6 +220,16 @@ class StereoVO:
         tr = cfg.tracker
         self._min_ok_static = max(tr.min_matches_motion // 2, 10)
         self._kf_budget = min(tr.kf_point_budget, ext.n_features)
+        # loop closing and relocalization, enabled by a vocabulary. Each
+        # new keyframe's (slot, map-point row in flight to the host) waits
+        # here for its loop query one keyframe later.
+        self._covis_queue: deque = deque()
+        self._loop_busy = False
+        self.loop_closer: Optional[LoopCloser] = None
+        self.relocalizer: Optional[Relocalizer] = None
+        if vocab is not None:
+            self.loop_closer = LoopCloser(cfg, self.cam, vocab, fix_scale=True)
+            self.relocalizer = Relocalizer(self.cam, self.level_scales)
 
     # ----------------------------------------------------- device programs
 
@@ -401,13 +459,14 @@ class StereoVO:
         if self.state == NOT_INITIALIZED:
             self.flush()
             feats, uright, depth = self._extract_pair(imgs)
-            return self._track_entry(feats, uright, depth, timestamp)
+            return self._track_entry(feats, uright, depth, timestamp, None)
         self.frame_id += 1
         bundle, self.map, self.carry_dev, feats, uright, depth = self._frame(
             imgs, self.map, self.carry_dev, self.T_dev, self.vel_dev,
             self.frame_id, timestamp,
         )
-        job = FrameJob(self.frame_id, timestamp, bundle, feats, uright, depth)
+        job = FrameJob(self.frame_id, timestamp, self.ref_kf, bundle, feats, uright, depth,
+                       fused=True)
         if self.device.type == "cuda":
             job.packed_host = torch.empty((PACKED_LEN,), dtype=torch.float32, pin_memory=True)
             job.packed_host.copy_(bundle.packed, non_blocking=True)
@@ -424,8 +483,31 @@ class StereoVO:
             n_kfs=self.n_kf, n_mps=self.n_mp, state=self.state
         )
 
+    def process_oracle(self, xy, uright, depth, desc, level, timestamp: float) -> TrackStats:
+        """Track one frame of given keypoints (pixels (V, 2), u_right and
+        depth (V,), uint32 descriptors (V, 8), pyramid levels (V,)),
+        synchronously, with the keyframe decision on the host."""
+        self._pre_frame(timestamp)
+        feats, ur, dp = make_oracle_features(
+            self.cfg.extractor.n_features, xy, uright, depth, desc, level, device=self.device
+        )
+        bundle = None
+        if self.state != NOT_INITIALIZED:
+            bundle = self._track(self.map, self._slot(max(self.ref_kf, 0)), feats, ur, dp,
+                                 self.T_dev, self.vel_dev)
+        return self._track_entry(feats, ur, dp, timestamp, bundle)
+
     def flush(self) -> Optional[TrackStats]:
-        """Finalize every frame in flight, and apply the pending culls."""
+        """Finalize every frame in flight, apply the pending culls, and run
+        the queued loop queries."""
+        st = self._flush_frames()
+        if self.loop_closer is not None:
+            self._drain_loop_queue()
+        return st
+
+    def _flush_frames(self) -> Optional[TrackStats]:
+        """Finalize the frames in flight and apply the pending culls,
+        without the loop queue (safe inside a loop correction)."""
         st = None
         while self._inflight:
             st = self._finalize(self._inflight.popleft())
@@ -441,12 +523,18 @@ class StereoVO:
             return stacked.pin_memory().to(self.device, non_blocking=True)
         return stacked
 
+    def _slot(self, slot: int) -> torch.Tensor:
+        return torch.tensor(slot, dtype=torch.long, device=self.device)
+
     # ------------------------------------------------------------- tracking
 
-    def _track_entry(self, feats, uright, depth, timestamp) -> TrackStats:
-        """Synchronous initialization attempt."""
+    def _track_entry(self, feats, uright, depth, timestamp, bundle) -> TrackStats:
+        """Synchronous dispatch and finalize (initialization, oracle path)."""
         self.frame_id += 1
-        job = FrameJob(self.frame_id, timestamp, None, feats, uright, depth)
+        job = FrameJob(self.frame_id, timestamp, self.ref_kf, bundle, feats, uright, depth)
+        if bundle is not None:
+            self.T_dev = SE3(bundle.T_R, bundle.T_t)
+            self.vel_dev = SE3(bundle.vel_R, bundle.vel_t)
         return self._finalize(job)
 
     def _pull_packed(self, job: FrameJob) -> np.ndarray:
@@ -455,6 +543,16 @@ class StereoVO:
             return job.packed_host.numpy().copy()
         return job.bundle.packed.cpu().numpy().copy()
 
+    @staticmethod
+    def _poses_from_packed(p: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        T_np = np.eye(4)
+        T_np[:3, :3] = p[0:9].reshape(3, 3)
+        T_np[:3, 3] = p[9:12]
+        ref_pose = np.eye(4)
+        ref_pose[:3, :3] = p[12:21].reshape(3, 3)
+        ref_pose[:3, 3] = p[21:24]
+        return T_np, ref_pose
+
     def _finalize(self, job: FrameJob) -> TrackStats:
         st = TrackStats(n_kfs=self.n_kf, n_mps=self.n_mp)
         if job.bundle is None:
@@ -462,22 +560,19 @@ class StereoVO:
             st.n_kfs, st.n_mps = self.n_kf, self.n_mp
             self._record(job, self.T_np, self.ref_pose_np, self.ref_kf, OK if ok else LOST)
             st.state = self.state
+            self.stats.append(st)
             return st
 
         self._apply_pending_culls()
         p = self._pull_packed(job)
-        T_np = np.eye(4)
-        T_np[:3, :3] = p[0:9].reshape(3, 3)
-        T_np[:3, 3] = p[9:12]
-        ref_pose = np.eye(4)
-        ref_pose[:3, :3] = p[12:21].reshape(3, 3)
-        ref_pose[:3, 3] = p[21:24]
+        T_np, ref_pose = self._poses_from_packed(p)
         n_in = int(p[_PK_NIN])
         self.n_mp = int(p[_PK_MPCOUNT])
         st.n_matches = int(p[_PK_NMATCH])
         st.n_inliers = n_in
         st.n_local_points = int(p[_PK_NLOCAL])
 
+        # a frame right after a loss or a relocalization needs > 50 inliers
         min_ok = max(self.cfg.tracker.min_matches_motion // 2, 10)
         if self.state != OK:
             min_ok = max(min_ok, 50)
@@ -489,24 +584,60 @@ class StereoVO:
         self.T_np = T_np
         self.ref_pose_np = ref_pose
         self._last_good = (job.bundle.T_R, job.bundle.T_t)
-        kf_created = int(p[_PK_KFFLAG]) > 0
-        self.n_kf = max(self.n_kf, int(p[_PK_KFCOUNT]))
-        ref_used = int(p[_PK_KFCOUNT]) - (1 if kf_created else 0) - 1
-        self._record(job, T_np, ref_pose, ref_used, OK)
-        self.ref_kf = self.n_kf - 1
-        if kf_created:
-            slot = int(p[_PK_KFSLOT])
-            self.ref_pose_np = T_np.copy()
-            # the keyframe's own record is relative to itself
-            self.records[-1] = FrameRecord(job.frame_id, job.timestamp, slot, np.eye(4), OK)
-            self._kf_mapping()
+        if job.fused:
+            kf_created = int(p[_PK_KFFLAG]) > 0
+            self.n_kf = max(self.n_kf, int(p[_PK_KFCOUNT]))
+            ref_used = int(p[_PK_KFCOUNT]) - (1 if kf_created else 0) - 1
+            self._record(job, T_np, ref_pose, ref_used, OK)
+            self.ref_kf = self.n_kf - 1
+            if kf_created:
+                slot = int(p[_PK_KFSLOT])
+                self.ref_pose_np = T_np.copy()
+                # the keyframe's own record is relative to itself
+                self.records[-1] = FrameRecord(job.frame_id, job.timestamp, slot, np.eye(4), OK)
+                self._on_keyframe_created(job, slot)
+                self._kf_mapping(n_in)
+        else:
+            self.frames_since_kf += 1
+            self._record(job, T_np, ref_pose, job.ref_kf, OK)
+            if self._need_keyframe(n_in, int(p[_PK_NCLOSE]), int(p[_PK_NCREAT])):
+                self._create_keyframe(
+                    job.feats, job.uright, job.depth, job.bundle.matched_mp, job.timestamp,
+                    pose_dev=SE3(job.bundle.T_R, job.bundle.T_t), frame_id=job.frame_id,
+                    pose_np=T_np,
+                )
+                self.records[-1] = FrameRecord(job.frame_id, job.timestamp, self.ref_kf,
+                                               np.eye(4), OK)
+                self._on_keyframe_created(job, self.ref_kf)
+                self._kf_mapping(n_in)
+                self.frames_since_kf = 0
         st.n_kfs, st.n_mps, st.state = self.n_kf, self.n_mp, OK
+        self.stats.append(st)
         return st
 
     def _handle_failure(self, job: FrameJob, st: TrackStats) -> TrackStats:
-        """Failed-frame ladder OK -> RECENTLY_LOST -> LOST. Relocalization
-        needs a vocabulary the port does not take (the reference's
-        `_try_relocalize` returns 0 without one)."""
+        """Failed-frame ladder: relocalize (refined against the local map
+        from the fix), else degrade OK -> RECENTLY_LOST -> LOST."""
+        n_rel = self._try_relocalize(job.feats, job.uright)
+        if n_rel > 0:
+            bundle = self._track(self.map, self._slot(max(self.ref_kf, 0)), job.feats,
+                                 job.uright, job.depth, self.T_dev,
+                                 SE3.identity(device=self.device))
+            p = bundle.packed.cpu().numpy()
+            n_ref = int(p[_PK_NIN])
+            if n_ref >= n_rel:
+                n_rel = n_ref
+                self.T_dev = SE3(bundle.T_R, bundle.T_t)
+                self.vel_dev = SE3.identity(device=self.device)
+                self._last_good = (bundle.T_R, bundle.T_t)
+                self.T_np, self.ref_pose_np = self._poses_from_packed(p)
+            self.state = OK
+            self.n_relocalized += 1
+            st.n_inliers = n_rel
+            self._record(job, self.T_np, self.ref_pose_np, self.ref_kf, OK)
+            st.n_kfs, st.n_mps, st.state = self.n_kf, self.n_mp, OK
+            self.stats.append(st)
+            return st
         if self.state == OK:
             self.state = RECENTLY_LOST
             self._lost_since = job.timestamp
@@ -517,43 +648,75 @@ class StereoVO:
             job.timestamp - self._lost_since > self.cfg.tracker.recently_lost_sec
         ):
             self.state = LOST
-            if self.n_kf < 10:
-                # the reference resets a young lost map at the next frame
+            # a young lost map is reset at the next frame
+            if self.n_kf < 10 and not self._atlas_ready():
                 self._reset_pending = True
+        elif self.state == LOST and self._atlas_ready() and (
+            job.timestamp - self._lost_since
+            > self.cfg.tracker.recently_lost_sec + self.cfg.tracker.atlas_lost_sec
+        ):
+            raise NotImplementedError(
+                f"frame {job.frame_id}: the lost map would be parked and a new one started; "
+                + ATLAS_SLICE)
         self._record(job, self.T_np, self.ref_pose_np, self.ref_kf, self.state)
         st.n_kfs, st.n_mps, st.state = self.n_kf, self.n_mp, self.state
+        self.stats.append(st)
         return st
 
-    def _kf_mapping(self):
+    def _try_relocalize(self, feats: Features, uright: torch.Tensor) -> int:
+        """One relocalization attempt against the keyframe database;
+        returns its inlier count (0 = no fix)."""
+        if self.relocalizer is None or self.loop_closer is None or self.n_kf < 1:
+            return 0
+        with self.timer.span("reloc"):
+            vocab = self.loop_closer.vocab
+            words, _ = voc.transform(vocab, feats.desc)
+            bow = voc.bow_vectors(words[None], feats.valid[None], vocab.idf, vocab.n_words)[0]
+            pose, n_in = self.relocalizer.try_relocalize(self.map, self.loop_closer.db, bow,
+                                                         feats, uright)
+        if pose is None:
+            return 0
+        self.T_dev = pose
+        self.vel_dev = SE3.identity(device=self.device)
+        self._last_good = (pose.R, pose.t)
+        T_np = np.eye(4)
+        T_np[:3, :3] = pose.R.cpu().numpy()
+        T_np[:3, 3] = pose.t.cpu().numpy()
+        self.T_np = T_np
+        return n_in
+
+    def _on_keyframe_created(self, job: FrameJob, slot: int):
+        """Subclass hook, called right after a keyframe is inserted (the
+        inertial pipeline closes its preintegration segment here)."""
+
+    def _kf_mapping(self, n_in: int):
         """Keyframe-rate duties on the reference's cadences: the mapping
         pass every `mapping_every`-th keyframe (from 3 keyframes on), local
         BA every `local_ba_every`-th, maintenance every
-        `maintenance_every`-th counted from 4 keyframes on."""
+        `maintenance_every`-th counted from 4 keyframes on; then the loop
+        closer's step."""
         tr = self.cfg.tracker
         self._map_tick += 1
         if self.n_kf >= 3 and self._map_tick % tr.mapping_every == 0:
-            t0 = time.perf_counter()
-            self.map = self._mapping_pass(self.map, self.ref_kf)
-            self._count("mapping", t0)
+            with self.timer.span("mapping"):
+                self.map = self._mapping_pass(self.map, self.ref_kf)
         self._ba_tick += 1
         if self._ba_tick % tr.local_ba_every == 0:
             self._local_ba()
         self._culling()
-
-    def _count(self, program: str, t0: float):
-        self.program_runs[program] += 1
-        self.program_host_s[program] += time.perf_counter() - t0
+        if self.loop_closer is not None:
+            self._loop_closing()
+        self._ref_kf_tracked = n_in
 
     def _local_ba(self):
         """Local BA, then the correction of the live (newest dispatched)
         pose, composed on the device."""
         if self.n_kf < 3:
             return
-        t0 = time.perf_counter()
-        self.map, delta = self._local_ba_program(self.map, self.ref_kf)
-        self.T_dev = self.T_dev.compose(delta)
-        self._last_good = (self.T_dev.R, self.T_dev.t)
-        self._count("local_ba", t0)
+        with self.timer.span("local_ba"):
+            self.map, delta = self._local_ba_program(self.map, self.ref_kf)
+            self.T_dev = self.T_dev.compose(delta)
+            self._last_good = (self.T_dev.R, self.T_dev.t)
 
     def _culling(self):
         """Map maintenance. A stereo map's young point needs 3
@@ -564,26 +727,34 @@ class StereoVO:
         self._maint_tick += 1
         if self._maint_tick % self.cfg.tracker.maintenance_every:
             return
-        t0 = time.perf_counter()
-        min_obs = 3 if self.cfg.camera.bf > 0 else 2
-        lo = 1
-        hi = max(self.n_kf - 3, lo) if self.n_kf >= 8 else lo
-        self.map, info = self._maintenance_program(self.map, self.ref_kf, min_obs, lo, hi)
-        if self.device.type == "cuda":
-            host = torch.empty(info.shape, dtype=info.dtype, pin_memory=True)
-            host.copy_(info, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record()
-            self._pending_culls.append((host, done))
-        else:
-            self._pending_culls.append((info, None))
-        self._count("maintenance", t0)
+        with self.timer.span("maintenance"):
+            min_obs = 3 if self.cfg.camera.bf > 0 else 2
+            lo = 1
+            hi = max(self.n_kf - 3, lo) if self.n_kf >= 8 else lo
+            self.map, info = self._maintenance_program(self.map, self.ref_kf, min_obs, lo, hi)
+            self._pending_culls.append(self._to_host_async(info))
+
+    def _to_host_async(self, t: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.cuda.Event]]:
+        """A copy of `t` on its way to the host: (copy, event set when it
+        has landed) on the card, (a snapshot, None) on the CPU."""
+        if self.device.type != "cuda":
+            return t.clone(), None
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return host, done
+
+    @staticmethod
+    def _landed(pending: Tuple[torch.Tensor, Optional[torch.cuda.Event]]) -> np.ndarray:
+        host, done = pending
+        if done is not None:
+            done.synchronize()
+        return host.numpy()
 
     def _apply_pending_culls(self):
-        for info, done in self._pending_culls:
-            if done is not None:
-                done.synchronize()
-            self._apply_cull_info(info.numpy())
+        for pending in self._pending_culls:
+            self._apply_cull_info(self._landed(pending))
         self._pending_culls = []
 
     def _apply_cull_info(self, info: np.ndarray):
@@ -592,7 +763,63 @@ class StereoVO:
         T_rel = np.eye(4)
         T_rel[:3, :3] = np.asarray(info[3:12], np.float64).reshape(3, 3)
         T_rel[:3, 3] = np.asarray(info[12:15], np.float64)
-        self.culled_parent[int(info[1])] = (int(info[2]), T_rel)
+        slot = int(info[1])
+        self.culled_parent[slot] = (int(info[2]), T_rel)
+        if self.loop_closer is not None:
+            self.loop_closer.remove_keyframe(slot)
+
+    # --------------------------------------------------------- loop closing
+
+    def _loop_closing(self):
+        """The newest keyframe's BoW vector enters the database now; its
+        map-point row starts for the host, and its loop query runs at the
+        next keyframe (one keyframe of lag)."""
+        slot = self.ref_kf
+        self.loop_closer.add_bow(self.map, slot)
+        self._covis_queue.append((slot, self._to_host_async(self.map.kf_mp[slot])))
+        if len(self._covis_queue) > 1:
+            self._drain_loop_queue(limit=len(self._covis_queue) - 1)
+
+    def _drain_loop_queue(self, limit: Optional[int] = None):
+        if self._loop_busy:
+            return  # re-entered from the drain before a correction
+        lc = self.loop_closer
+        self._loop_busy = True
+        try:
+            n = 0
+            while self._covis_queue and (limit is None or n < limit):
+                slot, pending = self._covis_queue.popleft()
+                n += 1
+                if slot in self.culled_parent:  # culled while queued
+                    continue
+                lc.register_covis(slot, self._landed(pending))
+
+                def _refresh():
+                    # frames dispatched against the pre-correction poses
+                    # are finalized first
+                    self._flush_frames()
+                    return self.map
+
+                self.map, closed = lc.process(self.map, slot, self.n_kf, refresh_cb=_refresh)
+                if closed:
+                    self._after_loop_correction()
+        finally:
+            self._loop_busy = False
+
+    def _after_loop_correction(self):
+        """Re-anchor the live pose on the corrected reference keyframe
+        (keeping the current frame's pose relative to it) and drop the
+        motion model."""
+        ref = max(self.ref_kf, 0)
+        T_ref = np.eye(4)
+        T_ref[:3, :3] = self.map.kf_R[ref].cpu().numpy()
+        T_ref[:3, 3] = self.map.kf_t[ref].cpu().numpy()
+        self.T_np = self.T_np @ np.linalg.inv(self.ref_pose_np) @ T_ref
+        self.ref_pose_np = T_ref.copy()
+        f32 = dict(dtype=self.map.kf_R.dtype, device=self.device)
+        self.T_dev = SE3(torch.tensor(self.T_np[:3, :3], **f32), torch.tensor(self.T_np[:3, 3], **f32))
+        self._last_good = (self.T_dev.R, self.T_dev.t)
+        self.vel_dev = SE3.identity(device=self.device)
 
     # ------------------------------------------------------------- helpers
 
@@ -613,36 +840,86 @@ class StereoVO:
         self.n_mp = int(self.map.mp_count[0])
         self.state = OK
         self._last_good = (self.T_dev.R, self.T_dev.t)
+        self._ref_kf_tracked = n_good
         self.carry_dev = torch.tensor([0, n_good], dtype=torch.int32, device=self.device)
         return True
 
-    def _create_keyframe(self, feats, uright, depth, matched_mp, timestamp):
-        """Host-decided keyframe creation (initialization)."""
+    def _need_keyframe(self, n_in: int, n_tracked_close: int, n_creatable: int) -> bool:
+        """The host keyframe decision of the oracle path (the image path
+        decides on the device with the same rule)."""
+        tr = self.cfg.tracker
+        if self.n_kf >= self.map.kf_R.shape[0] - 1:
+            return False
+        if self.frames_since_kf >= tr.max_frames_between_kf:
+            return True
+        if self.frames_since_kf < tr.min_frames_between_kf:
+            return False
+        need_close = n_tracked_close < 100 and n_creatable > 70
+        weak = n_in < tr.kf_ref_ratio * max(self._ref_kf_tracked, 1)
+        return bool(need_close or weak)
+
+    def _create_keyframe(self, feats, uright, depth, matched_mp, timestamp, pose_dev=None,
+                         frame_id=None, pose_np=None):
+        """Host-decided keyframe creation (initialization, oracle path)."""
         slot = self.n_kf
         self.n_kf += 1
         budget = min(1024 if slot == 0 else self.cfg.tracker.kf_point_budget,
                      self.cfg.extractor.n_features)
         self.map = self._create_kf_body(
-            self.map, slot, self.T_dev, self.frame_id, timestamp,
+            self.map, slot, pose_dev if pose_dev is not None else self.T_dev,
+            frame_id if frame_id is not None else self.frame_id, timestamp,
             feats, uright, depth, matched_mp, budget,
         )
         self.ref_kf = slot
-        self.ref_pose_np = self.T_np.copy()
+        self.ref_pose_np = (pose_np if pose_np is not None else self.T_np).copy()
 
     def _pre_frame(self, timestamp: float):
-        """Timestamp sanity and a pending map reset. Both need the map
-        reset, which comes in a later slice, so both raise."""
+        """Timestamp sanity (a backwards or too-large jump resets the
+        system) and a pending reset of a young lost map."""
         if self._last_frame_ts is not None and self.state != NOT_INITIALIZED:
             dt = timestamp - self._last_frame_ts
             if dt < 0 or dt > self.cfg.tracker.max_timestamp_jump_sec:
-                raise NotImplementedError(
-                    f"timestamp jump of {dt} s needs a map reset, not ported yet"
-                )
+                if self._atlas_ready():
+                    raise NotImplementedError(
+                        f"timestamp jump of {dt} s would start a new map; " + ATLAS_SLICE)
+                self.reset()
         self._last_frame_ts = timestamp
         if self._reset_pending:
-            raise NotImplementedError(
-                "the map was lost with fewer than 10 keyframes; its reset is not ported yet"
-            )
+            self._reset_pending = False
+            self.reset()
+
+    def _atlas_ready(self) -> bool:
+        return (self.cfg.tracker.atlas_enabled and self.loop_closer is not None
+                and self.n_kf >= 5)
+
+    def reset(self):
+        """Drop the map and the records and return to NOT_INITIALIZED (the
+        keyframe-rate cadence counters run on, as in the reference)."""
+        self.flush()
+        m = self.cfg.map
+        self.map = map_state.allocate(
+            m.max_keyframes, self.cfg.extractor.n_features, m.max_points, m.max_obs_per_point,
+            device=self.device,
+        )
+        self.n_kf = 0
+        self.n_mp = 0
+        self.ref_kf = -1
+        self.culled_parent = {}
+        self.records = []
+        self.stats = []
+        self.state = NOT_INITIALIZED
+        self.frames_since_kf = 0
+        self.frame_id = -1
+        self._ref_kf_tracked = 0
+        self.T_dev = SE3.identity(device=self.device)
+        self.vel_dev = SE3.identity(device=self.device)
+        self.T_np = np.eye(4)
+        self.ref_pose_np = np.eye(4)
+        self._last_good = (self.T_dev.R, self.T_dev.t)
+        self.carry_dev = torch.zeros((2,), dtype=torch.int32, device=self.device)
+        self._last_frame_ts = None
+        if self.loop_closer is not None:
+            self.loop_closer.reset_for_new_map()
 
     def _record(self, job: FrameJob, T_np, ref_pose_np, ref_kf, state):
         if ref_kf >= 0:
@@ -678,10 +955,12 @@ class StereoVO:
         return np.stack(out) if out else np.zeros((0, 4, 4))
 
 
-def make_stereo_vo(cfg: SystemConfig, device="cuda") -> StereoVO:
+def make_stereo_vo(cfg: SystemConfig, vocab: Optional[voc.Vocabulary] = None,
+                   device="cuda") -> StereoVO:
     """Entry point of the tracking loop; runs on CUDA unless the caller
-    passes device="cpu". The ORB frontend only: the KLT frontend comes in
-    a later slice."""
+    passes device="cpu". A vocabulary turns on loop closing and
+    relocalization. The ORB frontend only: the KLT frontend comes in a
+    later slice."""
     if cfg.tracker.frontend != "orb":
         raise NotImplementedError(f"frontend {cfg.tracker.frontend!r} is not ported yet")
-    return StereoVO(cfg, device=device)
+    return StereoVO(cfg, device=device, vocab=vocab)
