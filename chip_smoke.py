@@ -8,7 +8,7 @@ unperturbed and once per seed with 20 pixels of each left image moved by
 one grey level, and prints one JSON line a run (the port's ATE spread).
 
 Needs one CUDA card, `nvcc` and `nvidia-smi`; imports nothing of JAX or of
-the JAX package. It runs eight phases in order and prints one line per
+the JAX package. It runs nine phases in order and prints one line per
 phase with its seconds, flushed as the phase ends:
 
   device  the card's name and `nvidia-smi` name and power limit;
@@ -28,7 +28,7 @@ phase with its seconds, flushed as the phase ends:
           this image needs, beside the earlier per-level kernel's times
           and ptxas's registers and shared memory;
   slice   the tracking frame loop (`make_stereo_vo` ->
-          `process_stereo`) over 100 rendered KITTI-00-sized frames on
+          `process_stereo`) over 50 rendered KITTI-00-sized frames on
           "cuda", with the keyframe-rate programs off, after a 10-frame
           warm pass: steady frames/s, ATE, lost frames, keyframes, map
           points and the kernel's launch count, which must be 2 per frame
@@ -60,18 +60,21 @@ phase with its seconds, flushed as the phase ends:
           the device span and host ms of the correction and of global BA.
   loop    bench.py --loop's configuration: the closed-loop world (200
           frames, the tail re-traversing the start), bench.py's cadences,
-          and a vocabulary trained on the card from the port's own ORB
-          descriptors of every 20th left image, as bench.py trains it.
-          The reference forks a new map in its atlas on this world, which
-          the port does not have yet, so the phase runs (and its reference
-          figures were taken) with atlas_enabled=False. It fails on a
-          trajectory that is not finite, a launch count other than 2 per
-          frame, no loop query, or a loop program (BoW add, loop detection,
-          Sim3 verification, essential-graph correction, global BA,
-          relocalization attempt) that ran no time where the reference's
-          run ran it. It prints ATE, lost frames, relocalizations, loop
-          queries and loops closed beside the reference's, steady frames/s
-          and the host ms of each loop program.
+          a vocabulary trained on the card from the port's own ORB
+          descriptors of every 20th left image, as bench.py trains it, and
+          the atlas on, as bench.py runs it. It fails on a trajectory that
+          is not finite, a launch count other than 2 per frame, no loop
+          query, no map fork or no merge where the reference forks and
+          merges, or a loop or atlas program (BoW add, loop detection,
+          Sim3 verification, relocalization attempt, map fork, merge
+          detection, merge) that ran no time where the reference's run ran
+          it. (The reference's one loop correction on this world comes and
+          goes under one grey level; the correction and global BA are
+          gated in the loop-parts and ring phases.) It prints the forks and merges with the
+          frame of each beside the reference's, the host ms of a merge,
+          ATE, lost frames, relocalizations, loop queries and loops closed
+          beside the reference's, steady frames/s and the host ms of each
+          loop program.
   ring    the board ring (`make_board_ring_loop`: a 3 m circle driven once
           every 100 frames inside a ring of 1,500 boards all round it) at
           full width, 120 frames, bench.py's configuration and map capacity
@@ -85,6 +88,22 @@ phase with its seconds, flushed as the phase ends:
           correction ended beside the reference's, the device span and host
           ms of the correction and of global BA, and ATE, lost frames, loop
           queries and keyframes beside the reference's.
+  vio     tools/bench_vio.py's configuration unreduced: the stereo-inertial
+          pipeline (`make_stereo_inertial_vo` -> `process_stereo_inertial`)
+          over its 60-frame world (`make_billboard_inertial_sequence`, seed
+          5) with the 200 Hz IMU stream, 2000 ORB features, the inertial
+          window of 8, the smoother off, after an 8-frame warm pass and with
+          the pipeline drained before frame 8. It fails on a lost frame
+          where the reference lost none, `imu_ready` or the final
+          initialization stage other than the reference's, an ATE further
+          than max(1 cm, 20 %) from the reference's, a trajectory that is
+          not finite, a launch count other than 2 per frame, or a program
+          (integration, inertial track, inertial init, VI local BA, full
+          inertial BA, mapping pass, maintenance) that ran no time where the
+          reference's ran it. It prints steady frames/s, the frame of each
+          initialization stage, the gravity's angle to the truth and the
+          biases, keyframes, and the host ms of each program, beside the
+          reference's.
 
 Any failure raises and the script exits non-zero with the traceback. On
 success it prints the `nvidia-smi` line, a JSON line of per-kernel
@@ -105,12 +124,11 @@ import time
 import numpy as np
 
 # The JAX reference's ATE on the slice world, on the host CPU with x64
-# off: `python tools/slice_reference_ate.py` at commit 3ae1616 gave
-# 3.004895313875399 cm with 0 lost frames; with `--flush-at 10`, as the
-# smoke drains the pipeline, the same at 917b768. An accuracy figure, not a
-# speed.
-REF_ATE_CM = 3.004895313875399
-REF_ATE_COMMIT = "3ae1616da44f970b81e3b9d63fc47b9c82ced020"
+# off: `python tools/slice_reference_ate.py --frames 50 --flush-at 10`, as
+# the smoke drains the pipeline, with the JAX package of commit 22ba74e:
+# 1.4925058203719144 cm with 0 lost frames. An accuracy figure, not a speed.
+REF_ATE_CM = 1.4925058203719144
+REF_ATE_COMMIT = "22ba74e49f1b6ba06912721b09bd55dfa792f2fd"
 
 # The same for the full phase: `python tools/slice_reference_ate.py
 # --bench-cadences --frames 200 --flush-at 10` at commit 917b768 (an
@@ -123,17 +141,37 @@ REF_FULL = dict(ate_cm=7.529685106552717, lost=0, keyframes=173, map_points=3811
                 culled_keyframes=0)
 REF_FULL_COMMIT = "917b76847761432cf82235f5d92bce1e6e58c6d1"
 
-# The same for the loop phase: `python tools/slice_reference_ate.py --loop
-# --frames 200 --flush-at 10 --no-atlas` (an accuracy figure, not a
-# speed), with the runs of each loop program (no Sim3 verification
-# succeeds, so no correction and no global BA run; the loop-parts phase
-# runs them). With the atlas on (bench.py's default) the reference forks a
-# map on this world: 1 fork, 1 merge, 1 loop closed, 59 frames lost.
-REF_LOOP = dict(ate_cm=626.180248293151, lost=75, keyframes=58, relocalizations=26,
-                loop_queries=57, loops_closed=0,
-                programs=dict(bow_add=57, detect=57, verify=3, correct=0, gba=0, reloc=101))
-REF_LOOP_COMMIT = "a317520704971996ea587f988b572d587d5236c2"
-LOOP_PROGRAMS = ("bow_add", "detect", "verify", "correct", "gba", "reloc")
+# The same for the loop phase, atlas on as bench.py runs it: `python
+# tools/slice_reference_ate.py --loop --frames 200 --flush-at 10` with the
+# JAX package of commit 22ba74e (an accuracy figure, not a speed): the
+# runs of each loop and atlas program, and the last frame dispatched when
+# the map forked and when it merged back (fork_frames, merge_frames). The
+# merge ends in the re-anchoring that a loop correction ends in, so
+# loop_frames lists it (167) beside the loop's (194). Under one grey level
+# (`--perturb 1` to `4`) the fork (frames 157-158) and the merge (165-166)
+# stay and the loop correction goes: the phase gates the fork and the
+# merge, not the correction.
+REF_LOOP = dict(ate_cm=626.026744623195, lost=59, keyframes=83, relocalizations=1,
+                loop_queries=81, loops_closed=1, fork_frames=[158], merge_frames=[166],
+                loop_frames=[167, 194],
+                programs=dict(bow_add=85, detect=75, verify=13, correct=1, gba=1, reloc=60,
+                              fork=1, merge_detect=2, merge=1))
+REF_LOOP_COMMIT = "22ba74e49f1b6ba06912721b09bd55dfa792f2fd"
+
+# The same for the vio phase: `python tools/slice_reference_ate.py --vio
+# --frames 60 --flush-at 8` with the JAX package of commit 22ba74e (an
+# accuracy figure, not a speed): tools/bench_vio.py's configuration and
+# world, the stereo-inertial pipeline drained before frame 8 as bench_vio
+# drains it after its warm-up.
+REF_VIO = dict(ate_cm=0.4789413901156036, lost=0, keyframes=17, imu_ready=True, init_stage=2,
+               init_stage_frames=[21, 51], gravity_angle_deg=0.3406486459760357,
+               bias_gyro=[0.002451913431286812, -0.0013419506140053272, 0.002509200247004628],
+               bias_acc=[-0.012370639480650425, -0.03199164196848869, 0.0037461910396814346],
+               bias_gyro_true=[0.002, -0.001, 0.0015], bias_acc_true=[0.05, -0.03, 0.02],
+               programs=dict(integrate=59, track_vio=38, inertial_init=2, vi_local_ba=6,
+                             full_inertial_ba=2, mapping=8, maintenance=1))
+ATLAS_PROGRAMS = ("fork", "merge_detect", "merge")
+LOOP_PROGRAMS = ("bow_add", "detect", "verify", "correct", "gba", "reloc") + ATLAS_PROGRAMS
 
 # The same for the ring phase: `python tools/slice_reference_ate.py --ring
 # --frames 120 --flush-at 10 --no-atlas` (an accuracy figure, not a speed):
@@ -151,10 +189,12 @@ W, H = 1241, 376
 FX = FY = 718.856
 CX, CY = 607.1928, 185.2157
 BF = 386.1448
-N_FRAMES = 100
+N_FRAMES = 50
 N_FULL_FRAMES = 200  # bench.py's --frames default
 N_WARM = 10
 NEVER = 10 ** 9  # a keyframe cadence no run reaches
+VIO_FRAMES = 60  # tools/bench_vio.py's --frames default
+VIO_WARM = 8  # and its --warmup
 
 # H100 SXM peaks (NVIDIA data sheet) for the bound of a kernel.
 HBM_BYTES_PER_S = 3.35e12
@@ -426,7 +466,7 @@ def run_loop(cfg, world, n_frames, perturb=None, flush_at=N_WARM, frames=None, v
         vo_w.process_stereo(*frames[i], i * 0.1)
     vo_w.flush()
     vo = make_stereo_vo(cfg, vocab=vocab)
-    loop_frames = []
+    loop_frames, atlas_events = [], []
     if vocab is not None:
         after = vo._after_loop_correction
 
@@ -435,6 +475,18 @@ def run_loop(cfg, world, n_frames, perturb=None, flush_at=N_WARM, frames=None, v
             return after()
 
         vo._after_loop_correction = corrected
+        # (last frame dispatched, "fork" or "merge"), as
+        # tools/slice_reference_ate.py logs the reference's
+        for name, tag in (("_create_map_in_atlas", "fork"), ("_do_merge", "merge")):
+            fn = getattr(vo, name)
+
+            def logged(*a, _fn=fn, _tag=tag, **kw):
+                out = _fn(*a, **kw)
+                if _tag == "fork" or out:
+                    atlas_events.append((vo.frame_id, _tag))
+                return out
+
+            setattr(vo, name, logged)
     t_all = time.perf_counter()
     t_steady = None
     for i, (imgL, imgR) in enumerate(frames):
@@ -473,6 +525,8 @@ def run_loop(cfg, world, n_frames, perturb=None, flush_at=N_WARM, frames=None, v
         "launches": launches,
         "frames": frames_done,
         "loop_frames": loop_frames,
+        "fork_frames": [f for f, t in atlas_events if t == "fork"],
+        "merge_frames": [f for f, t in atlas_events if t == "merge"],
     }
 
 
@@ -590,11 +644,101 @@ def loop_world_frames():
     """bench.py --loop's world (tools/slice_reference_ate.py --loop)."""
     from vi_slam_tpu_torch.io import synthetic
 
-    world, _, frames = synthetic.make_billboard_inertial_sequence(
+    iw, _, frames = synthetic.make_billboard_inertial_sequence(
         N_FULL_FRAMES, FX, FY, CX, CY, W, H, BF, fps=10.0, n_landmarks=2000, n_boards=4000,
         seed=11, closed_loop=True, closed_loop_period_frames=int(N_FULL_FRAMES * 0.8), speed=5.0,
     )
-    return world, frames
+    return iw.world, frames
+
+
+def vio_config():
+    """tools/bench_vio.py's configuration (smoother off), unreduced."""
+    from vi_slam_tpu_torch.utils.config import (
+        BAConfig, CameraConfig, ExtractorConfig, IMUConfig, MapConfig, SystemConfig,
+        TrackerConfig,
+    )
+
+    return SystemConfig(
+        camera=CameraConfig(width=W, height=H, fx=FX, fy=FY, cx=CX, cy=CY, bf=BF,
+                            th_depth=35.0, fps=10.0),
+        extractor=ExtractorConfig(n_features=2000),
+        ba=BAConfig(max_local_kfs=6, max_local_points=2048, local_ba_iters=4,
+                    inertial_window=8, mapping_fuse_window=1),
+        map=MapConfig(max_keyframes=256, max_points=65536, max_obs_per_point=8),
+        imu=IMUConfig(freq=200.0),
+        tracker=TrackerConfig(max_frames_between_kf=4, maintenance_every=8, local_ba_every=2,
+                              mapping_every=2),
+    )
+
+
+def phase_vio():
+    """tools/bench_vio.py's configuration end to end: the stereo-inertial
+    pipeline over its 60-frame world with the 200 Hz IMU stream, after a
+    warm pass over the first VIO_WARM frames, the pipeline drained before
+    frame VIO_WARM as bench_vio.py drains it."""
+    import torch
+    from vi_slam_tpu_torch.io import evaluation, synthetic
+    from vi_slam_tpu_torch.ops import fast_kernel
+    from vi_slam_tpu_torch.pipeline.vio import INERTIAL_PROGRAMS, make_stereo_inertial_vo
+
+    t0 = time.perf_counter()
+    iw, _, frames = synthetic.make_billboard_inertial_sequence(
+        VIO_FRAMES, FX, FY, CX, CY, W, H, BF, n_landmarks=2000, seed=5)
+    prep_s = time.perf_counter() - t0
+    cfg = vio_config()
+    fast_kernel.reset_launches()
+    warm = make_stereo_inertial_vo(cfg)
+    for i in range(VIO_WARM):
+        warm.process_stereo_inertial(*frames[i], iw.imu_per_frame[i], iw.timestamps[i])
+    warm.flush()
+    vo = make_stereo_inertial_vo(cfg)
+    for i, (imgL, imgR) in enumerate(frames):
+        if i == VIO_WARM:
+            vo.flush()
+            torch.cuda.synchronize()
+            t_steady = time.perf_counter()
+        vo.process_stereo_inertial(imgL, imgR, iw.imu_per_frame[i], iw.timestamps[i])
+    vo.flush()
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    launches = fast_kernel.launches
+    frames_done = VIO_WARM + VIO_FRAMES
+    if launches != 2 * frames_done:
+        raise AssertionError(f"fast_resp_pref launched {launches} times for {frames_done}"
+                             f" frames, expected {2 * frames_done}")
+    est = vo.trajectory_wc()
+    if not np.all(np.isfinite(est)) or est.shape != (VIO_FRAMES, 4, 4):
+        raise AssertionError(f"trajectory not finite or of shape {est.shape}")
+    ref = REF_VIO
+    lost = sum(1 for r in vo.records if r.state != "OK")
+    if ref["lost"] == 0 and lost > 0:
+        raise AssertionError(f"{lost} frames lost where the reference lost none")
+    if (vo.imu_ready, vo._init_stage) != (ref["imu_ready"], ref["init_stage"]):
+        raise AssertionError(f"imu_ready {vo.imu_ready}, init stage {vo._init_stage}; the"
+                             f" reference's {ref['imu_ready']}, {ref['init_stage']}")
+    ate_cm = evaluation.ate_rmse(est[:, :3, 3], iw.world.poses_wc[:, :3, 3])["rmse"] * 100.0
+    tol_cm = max(1.0, 0.2 * ref["ate_cm"])
+    if abs(ate_cm - ref["ate_cm"]) > tol_cm:
+        raise AssertionError(f"ATE {ate_cm:.4f} cm vs reference {ref['ate_cm']:.4f} cm"
+                             f" (tolerance {tol_cm:.4f} cm)")
+    programs = INERTIAL_PROGRAMS + ("mapping", "maintenance")
+    runs = {k: vo.program_runs[k] for k in programs}
+    idle = [k for k in programs if ref["programs"].get(k, 0) > 0 and runs[k] <= 0]
+    if idle:
+        raise AssertionError(f"programs that ran no time where the reference ran them: {idle}"
+                             f" (port {runs}, reference {ref['programs']})")
+    g = vo.g_w_dev.cpu().numpy().astype(np.float64)
+    cos = g @ iw.gravity_w / max(np.linalg.norm(g) * np.linalg.norm(iw.gravity_w), 1e-12)
+    device = vo.timer.device_ms()
+    return dict(
+        prep_s=prep_s, steady_fps=(VIO_FRAMES - VIO_WARM) / (t_end - t_steady), ate_cm=ate_cm,
+        lost=lost, keyframes=vo.n_kf, launches=launches, frames=frames_done, runs=runs,
+        host_ms={k: vo.program_host_s[k] * 1e3 for k in programs},
+        device_ms={k: device.get(k) for k in programs},
+        init_stage=vo._init_stage, init_stage_frames=vo.init_stage_frames,
+        gravity_deg=float(np.degrees(np.arccos(np.clip(cos, -1.0, 1.0)))),
+        bg=vo.bg_dev.cpu().numpy(), ba=vo.ba_dev.cpu().numpy(),
+    )
 
 
 def train_loop_vocabulary(cfg, frames):
@@ -615,13 +759,11 @@ def train_loop_vocabulary(cfg, frames):
 
 
 def phase_loop():
-    """bench.py --loop's configuration end to end, atlas off."""
-    import dataclasses
-
+    """bench.py --loop's configuration end to end, with the atlas on as
+    bench.py runs it."""
     t0 = time.perf_counter()
     world, frames = loop_world_frames()
     cfg = slice_config(bench_cadences=True)
-    cfg = cfg.replace(tracker=dataclasses.replace(cfg.tracker, atlas_enabled=False))
     vocab = train_loop_vocabulary(cfg, frames)
     prep_s = time.perf_counter() - t0
     vo, r = run_loop(cfg, world, N_FULL_FRAMES, frames=frames, vocab=vocab, all_tracked=False)
@@ -629,7 +771,15 @@ def phase_loop():
     runs, host, _ = loop_numbers(vo)
     if lc.stats.n_queries <= 0:
         raise AssertionError("no loop query ran")
-    missing = [p for p in LOOP_PROGRAMS if REF_LOOP["programs"].get(p, 0) > 0 and runs[p] <= 0]
+    if REF_LOOP["fork_frames"] and not r["fork_frames"]:
+        raise AssertionError(f"no map fork; the reference forks at {REF_LOOP['fork_frames']}")
+    if REF_LOOP["merge_frames"] and not r["merge_frames"]:
+        raise AssertionError(f"no merge; the reference merges at {REF_LOOP['merge_frames']}")
+    # the reference's one loop correction here comes and goes under one grey
+    # level (ROADMAP F4): the correction and global BA are gated in the
+    # loop-parts and ring phases
+    gated = [p for p in LOOP_PROGRAMS if p not in ("correct", "gba")]
+    missing = [p for p in gated if REF_LOOP["programs"].get(p, 0) > 0 and runs[p] <= 0]
     if missing:
         raise AssertionError(f"loop programs that ran no time where the reference ran them:"
                              f" {missing} (port {runs}, reference {REF_LOOP['programs']})")
@@ -642,10 +792,12 @@ def loop_numbers(vo):
     """Runs, host ms and device span (ms; None where not measured) of each
     loop program of a StereoVO's run."""
     lc = vo.loop_closer
-    runs = dict(lc.timer.runs, reloc=vo.program_runs["reloc"])
+    own = ("reloc",) + ATLAS_PROGRAMS
+    runs = dict(lc.timer.runs, **{k: vo.program_runs[k] for k in own})
     host = dict({k: v * 1e3 for k, v in lc.timer.host_s.items()},
-                reloc=vo.program_host_s["reloc"] * 1e3)
-    device = dict(lc.timer.device_ms(), reloc=vo.timer.device_ms().get("reloc"))
+                **{k: vo.program_host_s[k] * 1e3 for k in own})
+    vdev = vo.timer.device_ms()
+    device = dict(lc.timer.device_ms(), **{k: vdev.get(k) for k in own})
     return runs, host, device
 
 
@@ -809,8 +961,15 @@ def main(argv) -> int:
     per_prog = ", ".join(
         f"{k} {lo['runs'][k]} runs (reference {ref['programs'].get(k, 0)}) {lo['host_ms'][k]:.1f} ms"
         for k in LOOP_PROGRAMS)
+    merge_ms = (f"{lo['host_ms']['merge'] / lo['runs']['merge']:.1f} ms host a merge"
+                if lo["runs"]["merge"] else "no merge")
     log_phase("loop", t0,
-              f"| atlas off (the reference forks a map on this world with it on) | world and"
+              f"| atlas on | forks {len(lo['fork_frames'])} at frames {lo['fork_frames']}"
+              f" (reference {ref['fork_frames']}) | merges {len(lo['merge_frames'])} at frames"
+              f" {lo['merge_frames']} (reference {ref['merge_frames']}), {merge_ms}"
+              f" | loop re-anchorings at frames {lo['loop_frames']} (reference"
+              f" {ref['loop_frames']})"
+              f" | world and"
               f" vocabulary {lo['prep_s']:.1f} s | steady {lo['steady_fps']:.3f} frames/s"
               f" (all {lo['all_fps']:.3f}) | ATE {lo['ate_cm']:.4f} cm (reference"
               f" {ref['ate_cm']:.4f} cm at {REF_LOOP_COMMIT[:7]}) | lost {lo['lost']} of"
@@ -842,6 +1001,31 @@ def main(argv) -> int:
               f" (reference {ref['keyframes']}) | runs {ri['runs']} (reference"
               f" {ref['programs']}) | fast_resp_pref launches {ri['launches']} for"
               f" {ri['frames']} frames")
+    t0 = time.perf_counter()
+    vi = phase_vio()
+    ref = REF_VIO
+
+    def vec(a):
+        return "[" + ", ".join(f"{x:.6f}" for x in a) + "]"
+
+    prog = ", ".join(
+        f"{k} {vi['runs'][k]} runs (reference {ref['programs'].get(k, 0)}) host"
+        f" {vi['host_ms'][k]:.1f} ms ({vi['host_ms'][k] / max(vi['runs'][k], 1):.2f} ms a run)"
+        for k in vi["runs"])
+    log_phase("vio", t0,
+              f"| tools/bench_vio.py's configuration, {VIO_FRAMES} frames, 200 Hz IMU | world"
+              f" {vi['prep_s']:.1f} s | steady {vi['steady_fps']:.3f} frames/s | ATE"
+              f" {vi['ate_cm']:.4f} cm (reference {ref['ate_cm']:.4f} cm, tolerance"
+              f" {max(1.0, 0.2 * ref['ate_cm']):.4f} cm) | lost {vi['lost']} (reference"
+              f" {ref['lost']}) | keyframes {vi['keyframes']} (reference {ref['keyframes']})"
+              f" | init stage {vi['init_stage']} at frames {vi['init_stage_frames']} (reference"
+              f" {ref['init_stage']} at {ref['init_stage_frames']}) | gravity"
+              f" {vi['gravity_deg']:.4f} deg from the truth (reference"
+              f" {ref['gravity_angle_deg']:.4f}) | gyro bias {vec(vi['bg'])} (reference"
+              f" {vec(ref['bias_gyro'])}, truth {vec(ref['bias_gyro_true'])}) | accel bias"
+              f" {vec(vi['ba'])} (reference {vec(ref['bias_acc'])}, truth"
+              f" {vec(ref['bias_acc_true'])}) | {prog} | fast_resp_pref launches"
+              f" {vi['launches']} for {vi['frames']} frames")
     print(f"total: {time.perf_counter() - t_start:.2f} s", flush=True)
 
     print(smi, flush=True)

@@ -85,6 +85,62 @@ def test_loop_slice_modules_are_checked(module):
     assert ROOT / "vi_slam_tpu_torch" / module in _port_files()
 
 
+SLICE_4_MODULES = (
+    "imu/preintegration.py", "optim/pose_inertial.py", "optim/inertial_init.py",
+    "optim/vi_ba.py", "slam_map/atlas.py", "pipeline/vio.py",
+)
+
+
+@pytest.mark.parametrize("module", SLICE_4_MODULES)
+def test_inertial_slice_modules_are_checked(module):
+    """The atlas and inertial slice's modules are among the files checked
+    above and in the import test below."""
+    assert ROOT / "vi_slam_tpu_torch" / module in _port_files()
+
+
+def _no_cuda(monkeypatch):
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    """Every entry point defaults to the card and raises without one:
+    make_stereo_inertial_vo, make_oracle_features, the BoW database and its
+    allocation."""
+    import numpy as np
+
+    from vi_slam_tpu_torch.pipeline.stereo_vo import make_oracle_features
+    from vi_slam_tpu_torch.pipeline.vio import make_stereo_inertial_vo
+    from vi_slam_tpu_torch.retrieval import database
+    from vi_slam_tpu_torch.utils.config import SystemConfig
+
+    _no_cuda(monkeypatch)
+    calls = [
+        lambda: make_stereo_inertial_vo(SystemConfig()),
+        lambda: make_oracle_features(4, np.zeros((2, 2)), np.zeros(2), np.zeros(2),
+                                     np.zeros((2, 8), np.uint32), np.zeros(2, np.int32)),
+        lambda: database.KeyFrameDatabase(8, 16),
+        lambda: database.allocate(8, 16),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()
+
+
+def test_smoother_raises():
+    """The fixed-lag smoother is a later slice: use_smoother=True raises
+    NotImplementedError naming it, before any device is touched."""
+    import dataclasses
+
+    from vi_slam_tpu_torch.pipeline.vio import make_stereo_inertial_vo
+    from vi_slam_tpu_torch.utils.config import BAConfig, SystemConfig
+
+    cfg = dataclasses.replace(SystemConfig(), ba=BAConfig(use_smoother=True))
+    with pytest.raises(NotImplementedError, match="smoother"):
+        make_stereo_inertial_vo(cfg, device="cpu")
+
+
 def test_port_imports_without_jax():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run(

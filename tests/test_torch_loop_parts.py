@@ -310,13 +310,43 @@ def test_pose_graph_matches_reference(mode):
 
 
 def test_pose_graph_4dof_raises():
-    K = 3
-    R, t = _circle(K)
-    with pytest.raises(NotImplementedError, match="inertial"):
-        pose_graph.optimize_pose_graph(
-            Sim3(T(R), T(t), torch.ones(K)), torch.zeros((1, 2), dtype=torch.int32),
-            Sim3(T(R[:1]), T(t[:1]), torch.ones(1)), torch.ones(1, dtype=torch.bool),
-            torch.ones(1), torch.zeros(K, dtype=torch.bool), mode="4dof")
+    """The 4-DoF graph, which raised before the inertial slice, against the
+    reference on tests/test_inertial_loop.py's unit problem
+    (test_4dof_projection_preserves_axis_rotation): six identity rotations
+    on a chain closed by one edge, keyframe 0 fixed, the yaw axis not a
+    coordinate axis, 10 iterations. Poses within 1e-5 of the reference's,
+    and every rotation a pure turn about the axis (1e-5); without an axis
+    the rotations turn about the world z axis only."""
+    rng = np.random.default_rng(0)
+    K = 6
+    axis = np.asarray([0.3, -0.9, 0.3])
+    axis /= np.linalg.norm(axis)
+    R = np.tile(np.eye(3), (K, 1, 1)).astype(np.float32)
+    t = rng.normal(0, 1.0, (K, 3)).astype(np.float32)
+    edges = np.asarray([[i, i + 1] for i in range(K - 1)] + [[K - 1, 0]], np.int32)
+    fixed = np.zeros((K,), bool)
+    fixed[0] = True
+    Si = Sim3(T(R[edges[:, 0]]), T(t[edges[:, 0]]), torch.ones(K))
+    Sj = Sim3(T(R[edges[:, 1]]), T(t[edges[:, 1]]), torch.ones(K))
+    meas = Sj.compose(Si.inverse())
+    for yaw in (axis, None):
+        with x64_off():
+            res = ref_pg.optimize_pose_graph(
+                ref_sim3.Sim3(J(R), J(t), jnp.ones(K, jnp.float32)), J(edges),
+                ref_sim3.Sim3(*(J(N(a)) for a in meas)), jnp.ones(K, bool),
+                jnp.ones(K, jnp.float32), J(fixed), iters=10, mode="4dof",
+                yaw_axis=None if yaw is None else J(yaw.astype(np.float32)))
+            want = [np.asarray(a) for a in res.poses]
+        got = pose_graph.optimize_pose_graph(
+            Sim3(T(R), T(t), torch.ones(K)), T(edges), meas, torch.ones(K, dtype=torch.bool),
+            torch.ones(K), T(fixed), iters=10, mode="4dof",
+            yaw_axis=None if yaw is None else T(yaw.astype(np.float32)))
+        for a, b in zip(got.poses, want):
+            np.testing.assert_allclose(N(a), b, atol=1e-5)
+        ax = np.array([0.0, 0.0, 1.0]) if yaw is None else axis
+        for k in range(K):
+            w = N(sim3.log(Sim3(got.poses.R[k], torch.zeros(3), torch.ones(()))))[3:6]
+            assert np.linalg.norm(w - ax * (ax @ w)) < 1e-5, (k, w)
 
 
 # ------------------------------------------------- scatter-assembled BA
@@ -509,7 +539,7 @@ def test_database_candidates_match_reference(ring_map):
         rdb = ref_db.KeyFrameDatabase(16, rvoc.n_words, n_cand=16)
     pvoc = vocabulary.train_vocabulary(desc, k=6, levels=3, iters=4, seed=2, device="cpu")
     pstate = map_state_from_numpy(d, device="cpu")
-    pdb = database.KeyFrameDatabase(16, pvoc.n_words, n_cand=16)
+    pdb = database.KeyFrameDatabase(16, pvoc.n_words, n_cand=16, device="cpu")
     graph = RefCovisGraph(16)
     from vi_slam_tpu.pipeline.loop_closing import _kf_bow as ref_kf_bow
     from vi_slam_tpu_torch.pipeline.loop_closing import _kf_bow

@@ -12,8 +12,7 @@ StereoVO against the JAX package's, fed the same oracle frames
   * tests/test_vo_oracle.py's 40-frame run.
   * a young map lost for longer than `recently_lost_sec`, and a timestamp
     that jumps backwards, reset both systems to the same state; with a
-    vocabulary and the atlas on, where the reference would fork a new
-    map, the port raises NotImplementedError.
+    vocabulary and the atlas on, a timestamp jump forks a new map.
 
 Every frame's state, reference keyframe and frame id are equal, and so
 are the keyframe counts. Inlier counts are within 2 of the reference's
@@ -277,8 +276,9 @@ def test_timestamp_jump_resets_like_reference():
 
 def test_atlas_fork_raises():
     """With a vocabulary, the atlas on and >= 5 keyframes, a timestamp jump
-    would fork a new map in the reference: the port raises, naming the
-    atlas, instead of resetting."""
+    forks a new map, in the reference and in the port (which raised here
+    before the atlas slice): the active map is parked with its keyframes,
+    and the next frame initializes map 1."""
     world = synthetic.make_landmark_world(n_frames=16, n_landmarks=4000, seed=0, speed=0.8)
     pvoc = vocabulary.train_vocabulary(world.desc[:3000], k=6, levels=3, iters=3,
                                        device="cpu")
@@ -288,6 +288,11 @@ def test_atlas_fork_raises():
         f = _frame(world, i)
         port.process_oracle(f.xy, f.uright, f.depth, f.desc, f.level, i * 0.1)
     assert port.n_kf >= 5 and port._atlas_ready()
+    n_kf = port.n_kf
     f = _frame(world, 8)
-    with pytest.raises(NotImplementedError, match="atlas"):
-        port.process_oracle(f.xy, f.uright, f.depth, f.desc, f.level, 100.0)
+    port.process_oracle(f.xy, f.uright, f.depth, f.desc, f.level, 100.0)
+    assert port.program_runs["fork"] == 1 and len(port.atlas_stored) == 1
+    assert port.atlas_stored[0].map_id == 0 and port.atlas_stored[0].n_kf == n_kf
+    assert (port.active_map_id, port.n_kf, port.state) == (1, 1, "OK")
+    assert [r.map_id for r in port.records] == [0] * 8 + [1]
+    assert port.trajectory_wc().shape == (9, 4, 4)

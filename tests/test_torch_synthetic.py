@@ -56,7 +56,8 @@ def test_landmark_world_oracle_frames_and_noise_match_reference():
 def test_inertial_world_matches_reference(closed):
     kw = dict(n_frames=30, fps=10.0, n_landmarks=500, seed=11, speed=5.0, closed_loop=closed,
               closed_loop_period_frames=24 if closed else 0)
-    _assert_same(synthetic.make_inertial_world(**kw), ref_synthetic.make_inertial_world(**kw).world)
+    _assert_same(synthetic.make_inertial_world(**kw).world,
+                 ref_synthetic.make_inertial_world(**kw).world)
 
 
 def test_billboard_inertial_sequence_matches_reference():
@@ -67,7 +68,7 @@ def test_billboard_inertial_sequence_matches_reference():
         4, FX, FY, CX, CY, W, H, BF, **kw)
     ref_world, ref_boards, ref_frames = ref_synthetic.make_billboard_inertial_sequence(
         4, FX, FY, CX, CY, W, H, BF, **kw)
-    _assert_same(world, ref_world.world)
+    _assert_same(world.world, ref_world.world)
     _assert_same(boards, ref_boards)
     for (a, b), (c, d) in zip(frames, ref_frames):
         np.testing.assert_array_equal(a, c)

@@ -20,7 +20,9 @@ relocalization run. It adds the loop figures: relocalizations (attempts
 and fixes), loop queries, loops closed, global-BA runs, map forks and
 merges of the atlas, and the runs of each loop program (BoW add, loop
 detection, Sim3 verification, essential-graph correction, global BA,
-relocalization attempt). `--no-atlas` sets `atlas_enabled=False`.
+relocalization attempt, map fork, merge detection, merge; "merge_try_ok"
+counts the merges done), and the frame dispatched last when each fork and
+merge happened. `--no-atlas` sets `atlas_enabled=False`.
 
 With `--ring` it runs the board ring instead: a closed circle of 3 m
 driven once every 100 frames (3.6 degrees a frame) inside a ring of 1500 textured boards all
@@ -36,6 +38,17 @@ corrected (the frames dispatched when the correction ends).
     JAX_PLATFORMS=cpu python tools/slice_reference_ate.py --bench-cadences --frames 200 --flush-at 10
     JAX_PLATFORMS=cpu python tools/slice_reference_ate.py --loop --frames 200 --flush-at 10 [--no-atlas]
     JAX_PLATFORMS=cpu python tools/slice_reference_ate.py --ring --frames 120 --flush-at 10 --no-atlas
+    JAX_PLATFORMS=cpu python tools/slice_reference_ate.py --vio --frames 60 --flush-at 8
+
+With `--vio` it runs `tools/bench_vio.py`'s configuration instead: the
+stereo-inertial pipeline (`StereoInertialVO.process_stereo_inertial`) over
+`make_billboard_inertial_sequence(F, ..., n_landmarks=2000, seed=5)` with
+its 200 Hz IMU stream, no vocabulary. It adds the inertial figures:
+`imu_ready`, the final initialization stage and the frame of each stage,
+the estimated gyro and accelerometer biases beside the truth, the angle of
+the estimated gravity to the truth, and the runs of each program
+(integration, inertial track, inertial init, VI local BA, full inertial BA,
+mapping pass, maintenance).
 
 This is an accuracy figure, not a speed: `chip_smoke.py` holds the port's
 ATE on the GPU to it.
@@ -74,8 +87,9 @@ from vi_slam_tpu.features.extractor import OrbExtractor  # noqa: E402
 from vi_slam_tpu.io import evaluation, synthetic  # noqa: E402
 from vi_slam_tpu.retrieval import vocabulary as voc  # noqa: E402
 from vi_slam_tpu.pipeline.klt_vo import make_stereo_vo  # noqa: E402
+from vi_slam_tpu.pipeline import vio as ref_vio  # noqa: E402
 from vi_slam_tpu.utils.config import (  # noqa: E402
-    BAConfig, CameraConfig, ExtractorConfig, MapConfig, SystemConfig,
+    BAConfig, CameraConfig, ExtractorConfig, IMUConfig, MapConfig, SystemConfig,
     TrackerConfig,
 )
 
@@ -102,6 +116,75 @@ def slice_config(bench_cadences: bool = False, atlas: bool = True) -> SystemConf
         tracker=TrackerConfig(min_frames_between_kf=1, pipeline_depth=3,
                               atlas_enabled=atlas, **every),
     )
+
+
+def vio_config() -> SystemConfig:
+    """tools/bench_vio.py's configuration (smoother off)."""
+    return SystemConfig(
+        camera=CameraConfig(width=W, height=H, fx=FX, fy=FY, cx=CX, cy=CY,
+                            bf=BF, th_depth=35.0, fps=10.0),
+        extractor=ExtractorConfig(n_features=2000),
+        ba=BAConfig(max_local_kfs=6, max_local_points=2048, local_ba_iters=4,
+                    inertial_window=8, mapping_fuse_window=1),
+        map=MapConfig(max_keyframes=256, max_points=65536, max_obs_per_point=8),
+        imu=IMUConfig(freq=200.0),
+        tracker=TrackerConfig(max_frames_between_kf=4, maintenance_every=8,
+                              local_ba_every=2, mapping_every=2),
+    )
+
+
+def instrument_vio(vo, counts, stage_frames):
+    """Count the inertial programs of a reference StereoInertialVO, and
+    record the frame of each initialization stage."""
+    for attr, key in (("_integrate_fn", "integrate"), ("_track_vio_fn", "track_vio"),
+                      ("_vi_ba_fn", "vi_local_ba"), ("_full_vi_ba_fn", "full_inertial_ba"),
+                      ("_mapping_fn", "mapping"), ("_maintenance_fn", "maintenance")):
+        count_calls(vo, attr, counts, key)
+    fused = vo._frame_vio_fn
+
+    def frame_vio(*a, **kw):  # one fused frame integrates and tracks
+        counts["integrate"] = counts.get("integrate", 0) + 1
+        counts["track_vio"] = counts.get("track_vio", 0) + 1
+        return fused(*a, **kw)
+
+    vo._frame_vio_fn = frame_vio
+    count_calls(ref_vio.iinit, "inertial_init", counts, "inertial_init")
+    init = vo._maybe_init_imu
+
+    def maybe_init():
+        stage = vo._init_stage
+        init()
+        if vo._init_stage != stage:
+            stage_frames.append(vo.records[-1].frame_id)
+
+    vo._maybe_init_imu = maybe_init
+
+
+def run_vio(args):
+    """bench_vio.py's run: (figures, ATE)."""
+    iw, _, frames = synthetic.make_billboard_inertial_sequence(
+        args.frames, FX, FY, CX, CY, W, H, BF, n_landmarks=2000, seed=5)
+    vo = ref_vio.StereoInertialVO(vio_config())
+    counts, stage_frames = {}, []
+    instrument_vio(vo, counts, stage_frames)
+    t0 = time.time()
+    for i, (imgL, imgR) in enumerate(frames):
+        if i == args.flush_at:
+            vo.flush()
+        vo.process_stereo_inertial(imgL, imgR, iw.imu_per_frame[i], iw.timestamps[i])
+        print(f"frame {i} {time.time() - t0:.1f}s", file=sys.stderr, flush=True)
+    est = vo.trajectory_wc()
+    ate = evaluation.ate_rmse(est[:, :3, 3], iw.world.poses_wc[:, :3, 3])
+    g = np.asarray(vo.g_w_dev, np.float64)
+    cos = g @ iw.gravity_w / max(np.linalg.norm(g) * np.linalg.norm(iw.gravity_w), 1e-12)
+    return {
+        "imu_ready": bool(vo.imu_ready), "init_stage": int(vo._init_stage),
+        "init_stage_frames": stage_frames,
+        "gravity_angle_deg": float(np.degrees(np.arccos(np.clip(cos, -1.0, 1.0)))),
+        "bias_gyro": np.asarray(vo.bg_dev).tolist(), "bias_acc": np.asarray(vo.ba_dev).tolist(),
+        "bias_gyro_true": iw.bias_gyro.tolist(), "bias_acc_true": iw.bias_acc.tolist(),
+        "programs": counts,
+    }, vo, ate
 
 
 def loop_frames(n_frames: int):
@@ -174,8 +257,16 @@ def instrument_loop(vo, counts):
     count_calls(lc, "_verify", counts, "verify", success=lambda out: out[0])
     count_calls(lc, "_correct", counts, "correct")
     count_calls(vo, "_try_relocalize", counts, "reloc", success=lambda n: n > 0)
-    count_calls(vo, "_create_map_in_atlas", counts, "map_forks")
-    count_calls(vo, "_do_merge", counts, "merges", success=lambda ok: ok)
+    count_calls(vo, "_create_map_in_atlas", counts, "fork")
+    count_calls(vo, "_try_merge_maps", counts, "merge_detect")
+    count_calls(vo, "_do_merge", counts, "merge_try", success=lambda ok: ok)
+
+
+def git_commit() -> str:
+    return subprocess.run(
+        ["git", "rev-parse", "HEAD"], capture_output=True, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+    ).stdout.strip()
 
 
 def main():
@@ -192,7 +283,20 @@ def main():
     ap.add_argument("--ring", action="store_true",
                     help="the board ring, where a loop closes (bench cadences, vocabulary)")
     ap.add_argument("--no-atlas", action="store_true", help="atlas_enabled=False")
+    ap.add_argument("--vio", action="store_true",
+                    help="tools/bench_vio.py's stereo-inertial configuration and world")
     args = ap.parse_args()
+    if args.vio:
+        t0 = time.time()
+        extra, vo, ate = run_vio(args)
+        out = {"frames": args.frames, "world": "vio", "flush_at": args.flush_at,
+               "ate_cm": ate["rmse"] * 100.0,
+               "lost": sum(1 for r in vo.records if r.state != "OK"),
+               "keyframes": vo.n_kf, "map_points": vo.n_mp, **extra,
+               "commit": git_commit(), "platform": jax.devices()[0].platform,
+               "seconds": time.time() - t0}
+        print(json.dumps(out))
+        return
     looped = args.loop or args.ring
     rng = np.random.default_rng(args.perturb) if args.perturb is not None else None
     t0 = time.time()
@@ -203,6 +307,17 @@ def main():
         world, frames = (ring_frames if args.ring else loop_frames)(args.frames)
         vo = make_stereo_vo(cfg, vocab=bench_vocabulary(cfg, frames))
         instrument_loop(vo, counts)
+        events = []  # (frame dispatched last, "fork" or "merge")
+        for name, tag in (("_create_map_in_atlas", "fork"), ("_do_merge", "merge")):
+            fn = getattr(vo, name)
+
+            def logged(*a, _fn=fn, _tag=tag, **kw):
+                out = _fn(*a, **kw)
+                if _tag == "fork" or out:
+                    events.append((vo.frame_id, _tag))
+                return out
+
+            setattr(vo, name, logged)
         after = vo._after_loop_correction
 
         def corrected():
@@ -235,10 +350,7 @@ def main():
               flush=True)
     est = vo.trajectory_wc()
     ate = evaluation.ate_rmse(est[:, :3, 3], world.poses_wc[:, :3, 3])
-    commit = subprocess.run(
-        ["git", "rev-parse", "HEAD"], capture_output=True, text=True,
-        cwd=os.path.dirname(os.path.abspath(__file__)),
-    ).stdout.strip()
+    commit = git_commit()
     out = {
         "frames": args.frames,
         "world": "ring" if args.ring else "loop" if args.loop else "billboard",
@@ -260,7 +372,9 @@ def main():
         out.update(loop_queries=st.n_queries, loops_closed=st.n_loops_closed,
                    verified=st.n_verified, gba_runs=counts.get("correct", 0),
                    relocalizations=counts.get("reloc_ok", 0), programs=counts,
-                   loop_frames=loop_frames_at)
+                   loop_frames=loop_frames_at,
+                   fork_frames=[f for f, t in events if t == "fork"],
+                   merge_frames=[f for f, t in events if t == "merge"])
     print(json.dumps(out))
 
 

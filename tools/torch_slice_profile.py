@@ -14,6 +14,16 @@ keyframe-rate program (mapping pass, local BA, maintenance). Prints:
 
     python3 tools/torch_slice_profile.py [--frames 20] [--warm 10] [--bench-cadences]
     python3 tools/torch_slice_profile.py --reloc [--frames 200]
+    python3 tools/torch_slice_profile.py --vio [--warm 30] [--frames 30]
+
+With `--vio` it runs `chip_smoke.py`'s vio phase instead
+(tools/bench_vio.py's stereo-inertial configuration and world, 200 Hz
+IMU): the first `--warm` frames unprofiled (the IMU initializes in them,
+and the pipeline fills), then `--frames` frames under the profiler with one
+range per stage of an inertial frame: extraction, IMU integration, the
+inertial track, keyframe creation and the segment's close, and at keyframe
+rate the mapping pass, maintenance, the inertial initialization and the
+visual-inertial BA (local and full). The output is as above.
 
 With `--reloc` it runs `chip_smoke.py`'s loop phase instead (bench.py
 --loop's world and vocabulary, atlas off; the tracking fails on many of
@@ -47,11 +57,14 @@ from vi_slam_tpu_torch.utils.timing import ProgramTimer  # noqa: E402
 
 STAGES = ("_extract_pair", "_track", "_create_kf_body", "_mapping_pass", "_local_ba_program",
           "_maintenance_program")
+VIO_STAGES = ("_extract_pair", "_integrate_and_accum", "_track_vio", "_create_kf_body",
+              "_close_segment", "_mapping_pass", "_maintenance_program", "_maybe_init_imu",
+              "_vi_local_ba")
 
 
-def instrument(vo):
+def instrument(vo, stages=STAGES):
     """Wrap each stage method of one StereoVO in a profiler range."""
-    for name in STAGES:
+    for name in stages:
         fn = getattr(vo, name)
 
         def wrapped(*a, _fn=fn, _name=name, **kw):
@@ -129,6 +142,65 @@ def reloc_profile(n_frames: int) -> None:
     print(json.dumps({"wall_s": wall_s, "attempts": steps.runs.get("attempt", 0), "steps": out}))
 
 
+def profiled(step, n_warm: int, n: int, label: str) -> None:
+    """Run step(i) for frames [0, n_warm) unprofiled and [n_warm, n) under
+    the profiler; print the per-frame split."""
+    for i in range(n_warm):
+        step(i)
+    step(None)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(n_warm, n):
+            step(i)
+        step(None)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type.name == "CUDA" and not e.key.startswith("stage")]
+    kernel_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    per = n - n_warm
+    print(f"device: {torch.cuda.get_device_name(0)} | {label}")
+    print(f"frames {per}: wall {wall_ms / per:.3f} ms/frame, device busy"
+          f" {kernel_ms / per:.3f} ms/frame, busy share {kernel_ms / wall_ms:.4f},"
+          f" idle share {1 - kernel_ms / wall_ms:.4f}")
+    for e in events:
+        if e.key.startswith("stage") and e.device_type.name == "CPU":
+            print(f"{e.key}: calls {e.count}, host {e.cpu_time_total / 1e3 / per:.3f} ms/frame,"
+                  f" device kernels {e.device_time_total / 1e3 / per:.3f} ms/frame")
+    print(events.table(sort_by="self_device_time_total", row_limit=25))
+    n_launch = sum(e.count for e in kernels)
+    print(json.dumps({"wall_ms_per_frame": wall_ms / per, "device_ms_per_frame": kernel_ms / per,
+                      "idle_share": 1 - kernel_ms / wall_ms, "kernels_per_frame": n_launch / per}))
+
+
+def vio_profile(n_warm: int, n_frames: int) -> None:
+    """The vio phase's world and configuration, split by stage."""
+    from vi_slam_tpu_torch.pipeline.vio import make_stereo_inertial_vo
+
+    n = n_warm + n_frames
+    iw, _, frames = synthetic.make_billboard_inertial_sequence(
+        n, chip_smoke.FX, chip_smoke.FY, chip_smoke.CX, chip_smoke.CY, chip_smoke.W,
+        chip_smoke.H, chip_smoke.BF, n_landmarks=2000, seed=5)
+    cfg = chip_smoke.vio_config()
+    warm = make_stereo_inertial_vo(cfg)
+    for i in range(chip_smoke.VIO_WARM):
+        warm.process_stereo_inertial(*frames[i], iw.imu_per_frame[i], iw.timestamps[i])
+    warm.flush()
+    vo = make_stereo_inertial_vo(cfg)
+    instrument(vo, VIO_STAGES)
+
+    def step(i):
+        if i is None:
+            vo.flush()
+        else:
+            vo.process_stereo_inertial(*frames[i], iw.imu_per_frame[i], iw.timestamps[i])
+
+    profiled(step, n_warm, n, "vio")
+    print(f"after the run: imu_ready {vo.imu_ready}, init stage {vo._init_stage} at frames"
+          f" {vo.init_stage_frames}, lost {sum(1 for r in vo.records if r.state != 'OK')}")
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=20)
@@ -137,9 +209,14 @@ def main():
                     help="mapping, local BA and maintenance at bench.py's cadences (2/3/8)")
     ap.add_argument("--reloc", action="store_true",
                     help="the loop phase's run, relocalization attempts split by step")
+    ap.add_argument("--vio", action="store_true",
+                    help="the vio phase's stereo-inertial run, split by stage")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("torch_slice_profile: needs a CUDA device")
+    if args.vio:
+        vio_profile(args.warm if args.warm != 10 else 30, args.frames if args.frames != 20 else 30)
+        return
     if args.reloc:
         reloc_profile(args.frames if args.frames != 20 else chip_smoke.N_FULL_FRAMES)
         return
@@ -155,33 +232,14 @@ def main():
 
     vo = make_stereo_vo(cfg)
     instrument(vo)
-    for i in range(args.warm):
-        vo.process_stereo(*frames[i], i * 0.1)
-    vo.flush()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for i in range(args.warm, n):
+
+    def step(i):
+        if i is None:
+            vo.flush()
+        else:
             vo.process_stereo(*frames[i], i * 0.1)
-        vo.flush()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.key_averages()
-    kernels = [e for e in events if e.device_type.name == "CUDA" and not e.key.startswith("stage")]
-    kernel_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    per = args.frames
-    print(f"device: {torch.cuda.get_device_name(0)}")
-    print(f"frames {per}: wall {wall_ms / per:.3f} ms/frame, device busy"
-          f" {kernel_ms / per:.3f} ms/frame, busy share {kernel_ms / wall_ms:.4f},"
-          f" idle share {1 - kernel_ms / wall_ms:.4f}")
-    for e in events:
-        if e.key.startswith("stage") and e.device_type.name == "CPU":
-            print(f"{e.key}: calls {e.count}, host {e.cpu_time_total / 1e3 / per:.3f} ms/frame,"
-                  f" device kernels {e.device_time_total / 1e3 / per:.3f} ms/frame")
-    print(events.table(sort_by="self_device_time_total", row_limit=25))
-    n_launch = sum(e.count for e in kernels)
-    print(json.dumps({"wall_ms_per_frame": wall_ms / per, "device_ms_per_frame": kernel_ms / per,
-                      "idle_share": 1 - kernel_ms / wall_ms, "kernels_per_frame": n_launch / per}))
+
+    profiled(step, args.warm, n, "slice" + (", bench cadences" if args.bench_cadences else ""))
 
 
 if __name__ == "__main__":

@@ -14,9 +14,8 @@ JAX package:
     (`make_drifted_ring`, tests/test_loop_closing.py), a ready-made map;
   * the closed-loop world of `bench.py --loop`
     (`make_inertial_world(closed_loop=True)`'s trajectory and landmarks,
-    `make_billboard_inertial_sequence`). The IMU stream is not copied: it
-    comes with the inertial slice, and it draws from the random generator
-    only after everything copied here.
+    `make_billboard_inertial_sequence`), and the IMU stream of that world
+    (`InertialWorld`), for the stereo-inertial pipeline.
 """
 
 from __future__ import annotations
@@ -267,46 +266,115 @@ def _roty(y):
     return R
 
 
+class InertialWorld(NamedTuple):
+    """A LandmarkWorld with its synchronized IMU stream."""
+
+    world: LandmarkWorld
+    imu_per_frame: List[np.ndarray]  # frame i: (n_i, 7) [t, acc3, gyro3] in (t_{i-1}, t_i]
+    vel_w: np.ndarray  # (N, 3) true body velocity at the frame times
+    gravity_w: np.ndarray  # (3,) gravity in the world frame
+    bias_gyro: np.ndarray  # (3,) true constant gyro bias
+    bias_acc: np.ndarray  # (3,)
+    timestamps: np.ndarray  # (N,) frame times
+
+
 def make_inertial_world(
     n_frames: int = 40,
     fps: float = 10.0,
+    imu_rate: float = 200.0,
     n_landmarks: int = 6000,
     corridor_half_width: float = 12.0,
     seed: int = 0,
     speed: float = 1.2,
+    bias_gyro=(0.002, -0.001, 0.0015),
+    bias_acc=(0.05, -0.03, 0.02),
+    noise_gyro: float = 1.7e-4,
+    noise_acc: float = 2.0e-3,
     excitation: float = 1.0,
     closed_loop: bool = False,
     closed_loop_period_frames: int = 0,
-) -> LandmarkWorld:
-    """The trajectory and landmarks of the reference's inertial world: a
-    smooth analytic path in the KITTI camera convention (x right, y down,
-    z forward), or with `closed_loop` a circle whose period is
-    `closed_loop_period_frames` (the whole sequence by default), so that
-    the tail re-traverses the start. Returns the LandmarkWorld part; the
-    reference's IMU measurements are not generated."""
+) -> InertialWorld:
+    """The reference's inertial world: a smooth analytic path in the KITTI
+    camera convention (x right, y down, z forward, gravity +y), or with
+    `closed_loop` a circle whose period is `closed_loop_period_frames` (the
+    whole sequence by default), so that the tail re-traverses the start;
+    landmarks in a corridor round it; and IMU samples at `imu_rate` from
+    the closed-form motion: accel_b = R_wb^T (a_w - g_w) + b_a + noise,
+    gyro_b = omega_b + b_g + noise (body frame = camera frame)."""
     rng = np.random.default_rng(seed)
+    g_w = np.asarray([0.0, 9.81, 0.0])
     ax_, wx_ = 0.8 * excitation, 0.5
     ay_, wy_ = 0.15 * excitation, 0.9
     az_, wz_ = 0.5 * excitation, 0.4
     yaw0, wyaw = 0.25, 0.3
-    t = np.arange(n_frames) / fps
+
+    def pos(t):
+        return np.stack([ax_ * np.sin(wx_ * t), ay_ * np.sin(wy_ * t),
+                         speed * t + az_ * np.sin(wz_ * t)], axis=-1)
+
+    def vel(t):
+        return np.stack([ax_ * wx_ * np.cos(wx_ * t), ay_ * wy_ * np.cos(wy_ * t),
+                         speed + az_ * wz_ * np.cos(wz_ * t)], axis=-1)
+
+    def acc(t):
+        return np.stack([-ax_ * wx_ ** 2 * np.sin(wx_ * t), -ay_ * wy_ ** 2 * np.sin(wy_ * t),
+                         -az_ * wz_ ** 2 * np.sin(wz_ * t)], axis=-1)
+
+    def yaw(t):
+        return yaw0 * np.sin(wyaw * t)
+
+    def yawdot(t):
+        return yaw0 * wyaw * np.cos(wyaw * t)
+
     if closed_loop:
         period = closed_loop_period_frames or n_frames
         w_c = 2.0 * np.pi / (period / fps)
         Rr = speed / w_c
-        th = w_c * t
-        pos = np.stack([Rr * (1.0 - np.cos(th)), ay_ * np.sin(wy_ * t), Rr * np.sin(th)], axis=-1)
-        yaw = w_c * t
-    else:
-        pos = np.stack(
-            [ax_ * np.sin(wx_ * t), ay_ * np.sin(wy_ * t), speed * t + az_ * np.sin(wz_ * t)],
-            axis=-1,
-        )
-        yaw = yaw0 * np.sin(wyaw * t)
+
+        def pos(t):  # noqa: F811
+            th = w_c * np.asarray(t)
+            return np.stack([Rr * (1.0 - np.cos(th)), ay_ * np.sin(wy_ * t), Rr * np.sin(th)],
+                            axis=-1)
+
+        def vel(t):  # noqa: F811
+            th = w_c * np.asarray(t)
+            return np.stack([Rr * w_c * np.sin(th), ay_ * wy_ * np.cos(wy_ * t),
+                             Rr * w_c * np.cos(th)], axis=-1)
+
+        def acc(t):  # noqa: F811
+            th = w_c * np.asarray(t)
+            return np.stack([Rr * w_c ** 2 * np.cos(th), -ay_ * wy_ ** 2 * np.sin(wy_ * t),
+                             -Rr * w_c ** 2 * np.sin(th)], axis=-1)
+
+        def yaw(t):  # noqa: F811
+            return w_c * np.asarray(t)
+
+        def yawdot(t):  # noqa: F811
+            return w_c * np.ones_like(np.asarray(t))
+
+    t_frames = np.arange(n_frames) / fps
     poses = np.tile(np.eye(4), (n_frames, 1, 1))
-    poses[:, :3, :3] = _roty(yaw)
-    poses[:, :3, 3] = pos
-    return _corridor_landmarks(rng, poses, n_frames, n_landmarks, corridor_half_width)
+    poses[:, :3, :3] = _roty(yaw(t_frames))
+    poses[:, :3, 3] = pos(t_frames)
+    world = _corridor_landmarks(rng, poses, n_frames, n_landmarks, corridor_half_width)
+
+    bg = np.asarray(bias_gyro)
+    ba = np.asarray(bias_acc)
+    sg = noise_gyro * np.sqrt(imu_rate)
+    sa = noise_acc * np.sqrt(imu_rate)
+    imu_per_frame: List[np.ndarray] = [np.zeros((0, 7))]
+    dt_imu = 1.0 / imu_rate
+    for i in range(1, n_frames):
+        ts = np.arange(t_frames[i - 1] + dt_imu, t_frames[i] + dt_imu / 2, dt_imu)
+        Rwb = _roty(yaw(ts))
+        a_b = np.einsum("nji,nj->ni", Rwb, acc(ts) - g_w[None, :])
+        w_b = np.einsum("nji,nj->ni", Rwb,
+                        np.stack([np.zeros_like(ts), yawdot(ts), np.zeros_like(ts)], -1))
+        a_b = a_b + ba[None, :] + rng.normal(0, sa, a_b.shape)
+        w_b = w_b + bg[None, :] + rng.normal(0, sg, w_b.shape)
+        imu_per_frame.append(np.concatenate([ts[:, None], a_b, w_b], axis=1))
+    return InertialWorld(world=world, imu_per_frame=imu_per_frame, vel_w=vel(t_frames),
+                         gravity_w=g_w, bias_gyro=bg, bias_acc=ba, timestamps=t_frames)
 
 
 def make_billboard_inertial_sequence(
@@ -326,17 +394,17 @@ def make_billboard_inertial_sequence(
     closed_loop: bool = False,
     closed_loop_period_frames: int = 0,
     speed: float = 1.2,
-) -> Tuple[LandmarkWorld, BillboardWorld, List]:
+) -> Tuple[InertialWorld, BillboardWorld, List]:
     """The image sequence along the inertial world's trajectory (the world
-    of `bench.py --loop` with closed_loop=True): textured billboards
-    rendered as stereo pairs. Returns (landmark world, billboard world,
-    [(imgL, imgR), ...])."""
-    world = make_inertial_world(
+    of `bench.py --loop` with closed_loop=True, and of
+    `tools/bench_vio.py`): textured billboards rendered as stereo pairs.
+    Returns (inertial world, billboard world, [(imgL, imgR), ...])."""
+    iw = make_inertial_world(
         n_frames=n_frames, fps=fps, n_landmarks=n_landmarks, seed=seed,
         excitation=excitation, speed=speed, closed_loop=closed_loop,
         closed_loop_period_frames=closed_loop_period_frames,
     )
-    poses = world.poses_wc
+    poses = iw.world.poses_wc
     rng = np.random.default_rng(seed + 2)
     centers = poses[rng.integers(0, n_frames, n_boards), :3, 3]
     offs = np.stack(
@@ -358,7 +426,7 @@ def make_billboard_inertial_sequence(
         imgR = render_billboard_image(bw, poses[i], fx, fy, cx, cy, width, height,
                                       baseline=bf / fx)
         frames.append((imgL, imgR))
-    return world, bw, frames
+    return iw, bw, frames
 
 
 def make_board_ring_loop(n_frames: int, period_frames: int, radius: float,
@@ -372,7 +440,7 @@ def make_board_ring_loop(n_frames: int, period_frames: int, radius: float,
     w_c = 2 * np.pi / (period_frames / 10.0)
     world = make_inertial_world(n_frames=n_frames, fps=10.0, n_landmarks=10, seed=seed,
                                 speed=radius * w_c, closed_loop=True,
-                                closed_loop_period_frames=period_frames)
+                                closed_loop_period_frames=period_frames).world
     rng = np.random.default_rng(board_seed)
     ang = rng.uniform(0, 2 * np.pi, n_boards)
     rad = rng.uniform(radius + 4, radius + 25, n_boards)

@@ -58,3 +58,32 @@ def retract_left(T: SE3, xi: torch.Tensor) -> SE3:
     """exp(xi) ∘ T, the pose-optimization update."""
     dT = exp(xi)
     return SE3(so3.normalize(dT.R @ T.R), dT.apply(T.t))
+
+
+def left_jacobian_inverse(xi: torch.Tensor) -> torch.Tensor:
+    """(..., 6, 6) inverse of SE(3)'s left Jacobian at xi = [rho, phi]:
+    log(exp(d) exp(xi)) ~ xi + J^-1 d. Blocks [[Jl^-1, -Jl^-1 Q Jl^-1],
+    [0, Jl^-1]] with Jl the SO(3) left Jacobian of phi and Q(rho, phi)
+    its translational coupling (Taylor-guarded near zero)."""
+    rho, phi = xi[..., :3], xi[..., 3:]
+    t2 = torch.sum(phi * phi, dim=-1)
+    small = t2 < 1e-6
+    s2 = torch.where(small, torch.ones_like(t2), t2)
+    t = torch.sqrt(s2)
+    sn, cs = torch.sin(t), torch.cos(t)
+    c1 = torch.where(small, 1.0 / 6.0 - t2 / 120.0, (t - sn) / (s2 * t))
+    c2 = torch.where(small, 1.0 / 24.0 - t2 / 720.0, (s2 + 2.0 * cs - 2.0) / (2.0 * s2 * s2))
+    c3 = torch.where(small, 1.0 / 120.0 - t2 / 2520.0,
+                     (2.0 * t - 3.0 * sn + t * cs) / (2.0 * s2 * s2 * t))
+    P, Rh = so3.hat(phi), so3.hat(rho)
+    PR, RP = P @ Rh, Rh @ P
+    PRP = PR @ P
+    Q = (0.5 * Rh + c1[..., None, None] * (PR + RP + PRP)
+         + c2[..., None, None] * (P @ PR + RP @ P - 3.0 * PRP)
+         + c3[..., None, None] * (PRP @ P + P @ PRP))
+    Ji = so3.inverse_right_jacobian(-phi)
+    out = torch.zeros((*xi.shape[:-1], 6, 6), dtype=xi.dtype, device=xi.device)
+    out[..., :3, :3] = Ji
+    out[..., 3:, 3:] = Ji
+    out[..., :3, 3:] = -Ji @ Q @ Ji
+    return out

@@ -113,6 +113,11 @@ def left_jacobian(w: torch.Tensor) -> torch.Tensor:
     return _eye_like(W) + B[..., None, None] * W + C[..., None, None] * (W @ W)
 
 
+def right_jacobian(w: torch.Tensor) -> torch.Tensor:
+    """J_r(w) = J_l(-w)."""
+    return left_jacobian(-w)
+
+
 def inverse_right_jacobian(w: torch.Tensor) -> torch.Tensor:
     """Closed-form inverse of the right Jacobian."""
     theta2 = torch.sum(w * w, dim=-1)

@@ -9,9 +9,10 @@ in the reference; the 14x14 edge blocks are scatter-added into a dense
 (identity on the locked one, zero for a fixed vertex) and solved by
 Cholesky.
 
-Modes: "sim3" (7 DoF) and "se3" (scale locked). The reference's "4dof"
-(yaw and translation, for gravity-aligned inertial maps) comes with the
-inertial slice and raises here.
+Modes: "sim3" (7 DoF), "se3" (scale locked) and "4dof" (yaw and
+translation, for gravity-aligned inertial maps): with a `yaw_axis` the
+rotation block of each vertex's projection is g g^T for the unit gravity
+direction g, without one the world z axis.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ _DOF_MASKS = {
     # tangent layout [rho (3), phi (3), sigma]
     "sim3": (1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0),
     "se3": (1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 0.0),
+    "4dof": (1.0, 1.0, 1.0, 0.0, 0.0, 1.0, 0.0),
 }
 
 
@@ -64,16 +66,13 @@ def _edge_jacobians(Si: Sim3, Sj: Sim3, Sm: Sim3):
 
 def optimize_pose_graph(poses: Sim3, edges_ij: torch.Tensor, meas: Sim3, edge_valid: torch.Tensor,
                         edge_weight: torch.Tensor, fixed: torch.Tensor, iters: int = 20,
-                        mode: str = "sim3") -> PoseGraphResult:
+                        mode: str = "sim3", yaw_axis: torch.Tensor | None = None
+                        ) -> PoseGraphResult:
     """Optimize keyframe poses S_iw (K,) over relative-pose constraints.
 
     edges_ij: (E, 2) vertex ids (i, j); meas: (E,) S_ji measurements;
     edge_valid: (E,) bool; edge_weight: (E,); fixed: (K,) bool anchored
-    vertices."""
-    if mode not in _DOF_MASKS:
-        raise NotImplementedError(
-            f"pose-graph mode {mode!r}: the gravity-aligned 4-DoF graph comes with the "
-            "inertial slice; the port has 'sim3' and 'se3'")
+    vertices; yaw_axis: (3,) world gravity direction of "4dof"."""
     dt = poses.t.dtype
     dev = poses.t.device
     K = poses.t.shape[0]
@@ -81,6 +80,10 @@ def optimize_pose_graph(poses: Sim3, edges_ij: torch.Tensor, meas: Sim3, edge_va
     ii = torch.clamp(edges_ij[:, 0].long(), 0, K - 1)
     jj = torch.clamp(edges_ij[:, 1].long(), 0, K - 1)
     P7 = torch.diag(torch.tensor(_DOF_MASKS[mode], dtype=dt, device=dev))
+    if mode == "4dof" and yaw_axis is not None:
+        g = yaw_axis.to(dt)
+        g = g / torch.clamp(torch.linalg.vector_norm(g), min=1e-9)
+        P7[3:6, 3:6] = torch.outer(g, g)
     Pk = torch.where(fixed[:, None, None], torch.zeros((), dtype=dt, device=dev), P7[None])
     ar7 = torch.arange(7, device=dev)
     kidx = torch.arange(K, device=dev)[:, None] * 7 + ar7[None, :]

@@ -137,6 +137,13 @@ class LoopCloser:
         # candidate is verified (mnCovisibilityConsistencyTh)
         self.consistency_th = 3
         self._consistent_groups: list = []
+        # an inertial pipeline sets these once its IMU is initialized: a
+        # correction then runs the 4-DoF graph about the gravity axis, and
+        # leaves the pre-correction poses for the owner to rotate its
+        # keyframe velocities
+        self.gravity_aligned = False
+        self.gravity_w: Optional[torch.Tensor] = None
+        self._last_old_poses: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
         self.reset_for_new_map()
 
     def reset_for_new_map(self) -> None:
@@ -283,6 +290,7 @@ class LoopCloser:
         window &= kf_valid
 
         S_old_all = Sim3(state.kf_R.clone(), state.kf_t.clone(), torch.ones((K,), dtype=dt, device=dev))
+        self._last_old_poses = (S_old_all.R, S_old_all.t)
         S_new_all = S_old_all.compose(S_cw_old.inverse()).compose(S_cw_new)
         state = _apply_correction(state, S_old_all, S_new_all, torch.from_numpy(window).to(dev))
 
@@ -310,9 +318,13 @@ class LoopCloser:
         poses = Sim3(state.kf_R, state.kf_t, torch.ones((K,), dtype=dt, device=dev))
         fixed = ~torch.from_numpy(kf_valid).to(dev)
         fixed[cand] = True
+        if self.gravity_aligned and self.gravity_w is not None:
+            mode, yaw_axis = "4dof", self.gravity_w.to(dt)
+        else:
+            mode, yaw_axis = ("se3" if self.fix_scale else "sim3"), None
         res = optimize_pose_graph(
             poses, edges, meas, torch.ones((E,), dtype=torch.bool, device=dev),
-            torch.ones((E,), dtype=dt, device=dev), fixed, iters=15,
-            mode="se3" if self.fix_scale else "sim3",
+            torch.ones((E,), dtype=dt, device=dev), fixed, iters=15, mode=mode,
+            yaw_axis=yaw_axis,
         )
         return _apply_correction(state, poses, res.poses, torch.from_numpy(kf_valid).to(dev))

@@ -31,8 +31,16 @@ failed frame first tries to relocalize against the database; otherwise
 it degrades OK -> RECENTLY_LOST -> LOST.
 
 A young map (< 10 keyframes) that gets lost, and a timestamp that jumps
-backwards or too far, reset the system. Where the reference would instead
-fork a new map in its atlas, the port raises: the atlas is a later slice.
+backwards or too far, reset the system. With the atlas on (a vocabulary
+and `atlas_enabled`) and at least 5 keyframes, a map lost for longer than
+`recently_lost_sec + atlas_lost_sec`, or a timestamp jump, parks the
+active map with its database and covisibility graph and starts a new one
+(`_create_map_in_atlas`). At every keyframe the newest keyframe then
+queries each parked map's database; a candidate verified by a Sim3 RANSAC
+welds the active map into the parked one (`_do_merge`: the constant-offset
+append of `slam_map/atlas.py`, seam fusion and whole-map BA), and the
+frame records of the active map are relabelled to the merged one.
+`trajectory_wc` resolves each record in its own map.
 
 The reference's two `lax.cond`s (the wide-radius retry and the keyframe
 creation) become host branches here, which read one device scalar each.
@@ -57,13 +65,15 @@ from vi_slam_tpu_torch.ops import stereo as stereo_ops
 from vi_slam_tpu_torch.ops.fast import top_k
 from vi_slam_tpu_torch.optim import local_ba, pose_opt
 from vi_slam_tpu_torch.pipeline import steps
-from vi_slam_tpu_torch.pipeline.loop_closing import LoopCloser
+from vi_slam_tpu_torch.pipeline.loop_closing import LoopCloser, _kf_bow
 from vi_slam_tpu_torch.pipeline.relocalization import Relocalizer
 from vi_slam_tpu_torch.retrieval import vocabulary as voc
+from vi_slam_tpu_torch.slam_map import atlas as atlas_mod
 from vi_slam_tpu_torch.slam_map import state as map_state
 from vi_slam_tpu_torch.utils.config import SystemConfig
 from vi_slam_tpu_torch.utils.device import resolve_device
 from vi_slam_tpu_torch.utils.numerics import norm3_f32
+from vi_slam_tpu_torch.utils.sampling import DrawFn, Sampler
 from vi_slam_tpu_torch.utils.timing import ProgramTimer
 
 NOT_INITIALIZED = "NOT_INITIALIZED"
@@ -120,6 +130,7 @@ class FrameRecord:
     ref_kf: int
     T_rel: np.ndarray  # (4, 4) Tcw_frame @ Twc_refkf
     state: str
+    map_id: int = 0  # the atlas map the frame tracked in
 
 
 @dataclass
@@ -132,12 +143,11 @@ class TrackStats:
     state: str = OK
 
 
-ATLAS_SLICE = "the atlas (multi-map fork and merge) comes in a later slice of the port"
-
-
-def make_oracle_features(n: int, xy, uright, depth, desc, level, device="cpu"):
+def make_oracle_features(n: int, xy, uright, depth, desc, level, device="cuda"):
     """Pad given keypoint arrays into a fixed-capacity Features batch and
-    its (u_right, depth): the first min(len, n) entries are valid."""
+    its (u_right, depth) on `device`: the first min(len, n) entries are
+    valid."""
+    device = resolve_device(device)
     cnt = min(len(xy), n)
 
     def pad(a, shape, fill, dtype):
@@ -191,7 +201,8 @@ class StereoVO:
         self._pending_culls: List[Tuple[torch.Tensor, Optional[torch.cuda.Event]]] = []
         # keyframe-rate programs and relocalization attempts: runs, host
         # seconds spent dispatching them, device spans on the card
-        self.timer = ProgramTimer(dev, ("mapping", "local_ba", "maintenance", "reloc"))
+        self.timer = ProgramTimer(dev, ("mapping", "local_ba", "maintenance", "reloc", "fork",
+                                        "merge_detect", "merge"))
         self.program_runs = self.timer.runs
         self.program_host_s = self.timer.host_s
         self.state = NOT_INITIALIZED
@@ -230,17 +241,23 @@ class StereoVO:
         if vocab is not None:
             self.loop_closer = LoopCloser(cfg, self.cam, vocab, fix_scale=True)
             self.relocalizer = Relocalizer(self.cam, self.level_scales)
+        # the atlas: parked maps, the active map's id, and the merge's
+        # Sim3 RANSAC samples (a generator seeded 23, the reference's key)
+        self.atlas_stored: List[atlas_mod.StoredMap] = []
+        self.active_map_id = 0
+        self.merge_count = 0
+        self._next_map_id = 0
+        self._fork_pending = False
+        self._merge_guard = False
+        self.merge_draw: DrawFn = Sampler(23, dev)
 
     # ----------------------------------------------------- device programs
 
-    def _track(self, mstate, ref_slot, feats, uright, depth, T_last: SE3, vel: SE3) -> TrackBundle:
-        """Local-map tracking: covisibility window, projection matching
-        with a 3x-radius retry from the last pose when too few points
-        match, and pose Gauss-Newton."""
+    def _local_map(self, mstate, ref_slot, T_pred: SE3):
+        """The covisibility window's points projected from T_pred:
+        (projection, point ids, point mask)."""
         cfg = self.cfg
         ext = cfg.extractor
-        n_feats = ext.n_features
-        T_pred = vel.compose(T_last)
         window = steps.covis_window(mstate, ref_slot, cfg.ba.max_local_kfs)
         mp_ids, mp_mask = steps.gather_local_points(mstate, window, cfg.ba.max_local_points)
         proj = steps.project_local_points(
@@ -248,16 +265,32 @@ class StereoVO:
             cfg.camera.width, cfg.camera.height,
             n_levels=ext.n_levels, scale_factor=ext.scale_factor,
         )
+        return proj, mp_ids, mp_mask
+
+    def _search(self, proj, feats, uright, radius: float):
+        """Projection matching within `radius`: (matches, pose
+        observations, their keypoint indices)."""
+        cfg = self.cfg
+        m = match_ops.search_by_projection(
+            proj.uv, proj.level, proj.desc, proj.valid,
+            feats.xy, feats.level, feats.desc, feats.valid,
+            radius=radius, level_scales=self.level_scales,
+            max_dist=cfg.matcher.th_high, ratio=cfg.matcher.nn_ratio,
+        )
+        m = match_ops.resolve_duplicate_targets(m, cfg.extractor.n_features)
+        obs, kp_idx = steps.build_pose_obs(proj, m, feats, uright)
+        return m, obs, kp_idx
+
+    def _track(self, mstate, ref_slot, feats, uright, depth, T_last: SE3, vel: SE3) -> TrackBundle:
+        """Local-map tracking: covisibility window, projection matching
+        with a 3x-radius retry from the last pose when too few points
+        match, and pose Gauss-Newton."""
+        cfg = self.cfg
+        T_pred = vel.compose(T_last)
+        proj, mp_ids, mp_mask = self._local_map(mstate, ref_slot, T_pred)
 
         def run_match(rad, T_init):
-            m = match_ops.search_by_projection(
-                proj.uv, proj.level, proj.desc, proj.valid,
-                feats.xy, feats.level, feats.desc, feats.valid,
-                radius=rad, level_scales=self.level_scales,
-                max_dist=cfg.matcher.th_high, ratio=cfg.matcher.nn_ratio,
-            )
-            m = match_ops.resolve_duplicate_targets(m, n_feats)
-            obs, kp_idx = steps.build_pose_obs(proj, m, feats, uright)
+            m, obs, kp_idx = self._search(proj, feats, uright, rad)
             T_opt, inlier, n_in = pose_opt.pose_optimize(
                 self.cam, T_init, obs, rounds=cfg.ba.pose_rounds,
                 iters=cfg.ba.pose_iters_per_round,
@@ -268,7 +301,14 @@ class StereoVO:
         m, kp_idx, T, inlier, n_in = run_match(radius, T_pred)
         if int(n_in) < cfg.tracker.min_matches_motion:
             m, kp_idx, T, inlier, n_in = run_match(3.0 * radius, T_last)
+        return self._track_bundle(mstate, ref_slot, feats, depth, proj, mp_ids, mp_mask, m,
+                                  kp_idx, T, T_last, inlier, n_in)
 
+    def _track_bundle(self, mstate, ref_slot, feats, depth, proj, mp_ids, mp_mask, m, kp_idx,
+                      T: SE3, T_last: SE3, inlier, n_in) -> TrackBundle:
+        """The tracking result: keypoint -> map point links of the inliers,
+        the SE3 motion, and the packed vector the host reads."""
+        n_feats = self.cfg.extractor.n_features
         ok = m.ok & proj.valid & inlier
         matched_mp = steps.scatter_matches_to_kps(n_feats, kp_idx, mp_ids, ok)
         vel_new = T.compose(T_last.inverse())
@@ -315,11 +355,19 @@ class StereoVO:
     def _frame(self, imgs_u8, mstate, carry, T_last, vel, frame_id: int, ts: float):
         """One frame: extract + stereo + track + the keyframe decision and
         creation (carry = (frames_since_kf, ref_kf_tracked))."""
-        tr = self.cfg.tracker
         feats, uright, depth = self._extract_pair(imgs_u8)
         K = mstate.kf_R.shape[0]
         ref_slot = torch.clamp(mstate.kf_count[0].long() - 1, 0, K - 1)
         bundle = self._track(mstate, ref_slot, feats, uright, depth, T_last, vel)
+        return self._decide_keyframe(bundle, mstate, carry, frame_id, ts, feats, uright, depth)
+
+    def _decide_keyframe(self, bundle: TrackBundle, mstate, carry, frame_id: int, ts: float,
+                         feats, uright, depth, on_create=None):
+        """The device keyframe decision of a tracked frame, and the
+        keyframe's creation (then `on_create(slot)`); returns (bundle with
+        the decision packed, map, carry, feats, uright, depth)."""
+        tr = self.cfg.tracker
+        K = mstate.kf_R.shape[0]
         p = bundle.packed
         n_in = p[_PK_NIN].to(torch.int32)
         n_close = p[_PK_NCLOSE].to(torch.int32)
@@ -339,6 +387,8 @@ class StereoVO:
                 mstate, slot, SE3(bundle.T_R, bundle.T_t), frame_id, ts,
                 feats, uright, depth, bundle.matched_mp, self._kf_budget,
             )
+            if on_create is not None:
+                on_create(slot)
         carry_new = torch.where(
             kf_new, torch.stack([torch.zeros_like(n_in), n_in]),
             torch.stack([fs, carry[1]]),
@@ -465,8 +515,13 @@ class StereoVO:
             imgs, self.map, self.carry_dev, self.T_dev, self.vel_dev,
             self.frame_id, timestamp,
         )
-        job = FrameJob(self.frame_id, timestamp, self.ref_kf, bundle, feats, uright, depth,
-                       fused=True)
+        return self._enqueue(FrameJob(self.frame_id, timestamp, self.ref_kf, bundle, feats,
+                                      uright, depth, fused=True))
+
+    def _enqueue(self, job: FrameJob) -> TrackStats:
+        """Queue a dispatched frame (its packed vector on its way to pinned
+        host memory) and finalize the frames past the pipeline depth."""
+        bundle = job.bundle
         if self.device.type == "cuda":
             job.packed_host = torch.empty((PACKED_LEN,), dtype=torch.float32, pin_memory=True)
             job.packed_host.copy_(bundle.packed, non_blocking=True)
@@ -578,7 +633,7 @@ class StereoVO:
             min_ok = max(min_ok, 50)
         failed = n_in < min_ok
         if self.state in (OK, RECENTLY_LOST) and failed or self.state == LOST:
-            return self._handle_failure(job, st)
+            return self._handle_failure(job, st, T_np)
 
         self.state = OK
         self.T_np = T_np
@@ -615,9 +670,11 @@ class StereoVO:
         self.stats.append(st)
         return st
 
-    def _handle_failure(self, job: FrameJob, st: TrackStats) -> TrackStats:
+    def _handle_failure(self, job: FrameJob, st: TrackStats, T_np: np.ndarray) -> TrackStats:
         """Failed-frame ladder: relocalize (refined against the local map
-        from the fix), else degrade OK -> RECENTLY_LOST -> LOST."""
+        from the fix), else degrade OK -> RECENTLY_LOST -> LOST; a map
+        lost past the atlas window is parked at the next frame. (T_np,
+        the frame's tracked pose, serves the inertial pipeline.)"""
         n_rel = self._try_relocalize(job.feats, job.uright)
         if n_rel > 0:
             bundle = self._track(self.map, self._slot(max(self.ref_kf, 0)), job.feats,
@@ -655,9 +712,7 @@ class StereoVO:
             job.timestamp - self._lost_since
             > self.cfg.tracker.recently_lost_sec + self.cfg.tracker.atlas_lost_sec
         ):
-            raise NotImplementedError(
-                f"frame {job.frame_id}: the lost map would be parked and a new one started; "
-                + ATLAS_SLICE)
+            self._fork_pending = True
         self._record(job, self.T_np, self.ref_pose_np, self.ref_kf, self.state)
         st.n_kfs, st.n_mps, st.state = self.n_kf, self.n_mp, self.state
         self.stats.append(st)
@@ -706,6 +761,8 @@ class StereoVO:
         self._culling()
         if self.loop_closer is not None:
             self._loop_closing()
+            if self.atlas_stored and self.n_kf >= 3:
+                self._try_merge_maps()
         self._ref_kf_tracked = n_in
 
     def _local_ba(self):
@@ -874,28 +931,56 @@ class StereoVO:
         self.ref_pose_np = (pose_np if pose_np is not None else self.T_np).copy()
 
     def _pre_frame(self, timestamp: float):
-        """Timestamp sanity (a backwards or too-large jump resets the
-        system) and a pending reset of a young lost map."""
+        """Timestamp sanity (a backwards or too-large jump forks a new map
+        when the atlas is ready, else resets the system), a pending reset
+        of a young lost map, and a pending fork."""
         if self._last_frame_ts is not None and self.state != NOT_INITIALIZED:
             dt = timestamp - self._last_frame_ts
             if dt < 0 or dt > self.cfg.tracker.max_timestamp_jump_sec:
                 if self._atlas_ready():
-                    raise NotImplementedError(
-                        f"timestamp jump of {dt} s would start a new map; " + ATLAS_SLICE)
-                self.reset()
+                    self._fork_pending = True
+                else:
+                    self.reset()
         self._last_frame_ts = timestamp
         if self._reset_pending:
             self._reset_pending = False
             self.reset()
+        if self._fork_pending:
+            self.flush()
+            if self._fork_pending:
+                self._create_map_in_atlas()
 
     def _atlas_ready(self) -> bool:
         return (self.cfg.tracker.atlas_enabled and self.loop_closer is not None
                 and self.n_kf >= 5)
 
     def reset(self):
-        """Drop the map and the records and return to NOT_INITIALIZED (the
-        keyframe-rate cadence counters run on, as in the reference)."""
+        """Drop every map and the records and return to NOT_INITIALIZED
+        (the keyframe-rate cadence counters run on, as in the reference)."""
         self.flush()
+        self._new_active_map()
+        self.records = []
+        self.stats = []
+        self.atlas_stored = []
+        self.active_map_id = 0
+        self._next_map_id = 0
+        self._fork_pending = False
+        self.frame_id = -1
+        self._last_frame_ts = None
+
+    def _record(self, job: FrameJob, T_np, ref_pose_np, ref_kf, state):
+        if ref_kf >= 0:
+            T_rel = T_np @ np.linalg.inv(ref_pose_np)
+        else:
+            T_rel = T_np.copy()
+        self.records.append(FrameRecord(job.frame_id, job.timestamp, ref_kf, T_rel, state,
+                                        self.active_map_id))
+
+    # ----------------------------------------------------------------- atlas
+
+    def _new_active_map(self):
+        """A fresh map and tracking state, and a fresh database and graph
+        in the loop closer (the fork and the bad-IMU reset)."""
         m = self.cfg.map
         self.map = map_state.allocate(
             m.max_keyframes, self.cfg.extractor.n_features, m.max_points, m.max_obs_per_point,
@@ -905,11 +990,8 @@ class StereoVO:
         self.n_mp = 0
         self.ref_kf = -1
         self.culled_parent = {}
-        self.records = []
-        self.stats = []
         self.state = NOT_INITIALIZED
         self.frames_since_kf = 0
-        self.frame_id = -1
         self._ref_kf_tracked = 0
         self.T_dev = SE3.identity(device=self.device)
         self.vel_dev = SE3.identity(device=self.device)
@@ -917,38 +999,166 @@ class StereoVO:
         self.ref_pose_np = np.eye(4)
         self._last_good = (self.T_dev.R, self.T_dev.t)
         self.carry_dev = torch.zeros((2,), dtype=torch.int32, device=self.device)
-        self._last_frame_ts = None
         if self.loop_closer is not None:
             self.loop_closer.reset_for_new_map()
 
-    def _record(self, job: FrameJob, T_np, ref_pose_np, ref_kf, state):
-        if ref_kf >= 0:
-            T_rel = T_np @ np.linalg.inv(ref_pose_np)
-        else:
-            T_rel = T_np.copy()
-        self.records.append(FrameRecord(job.frame_id, job.timestamp, ref_kf, T_rel, state))
+    def _create_map_in_atlas(self):
+        """Park the active map with its database, covisibility graph, loop
+        edges and culled keyframes, and start tracking into a new map."""
+        with self.timer.span("fork"):
+            self._fork_pending = False
+            lc = self.loop_closer
+            self.atlas_stored.append(atlas_mod.StoredMap(
+                map=self.map, n_kf=self.n_kf, n_mp=self.n_mp, map_id=self.active_map_id,
+                db=lc.db if lc else None, covis=lc.covis if lc else None,
+                loop_edges=list(lc.loop_edges) if lc else [],
+                culled_parent=dict(self.culled_parent),
+            ))
+            self._new_active_map()
+            self._next_map_id += 1
+            self.active_map_id = self._next_map_id
+
+    def _try_merge_maps(self) -> bool:
+        """Query each parked map's database with the newest keyframe; weld
+        on the first candidate that a Sim3 RANSAC verifies (of the best 3
+        of each map). Spans "merge_detect": each query and verification."""
+        if self._merge_guard:
+            return False
+        lc = self.loop_closer
+        cur = self.ref_kf
+        self._merge_guard = True
+        try:
+            with self.timer.span("merge_detect"):
+                bow = _kf_bow(self.map, cur, lc.vocab)
+            for si, sm in enumerate(self.atlas_stored):
+                if sm.db is None:
+                    continue
+                with self.timer.span("merge_detect"):
+                    cands = sm.db.detect_reloc_candidates(sm.map, bow)
+                for cand in cands.tolist()[:3]:
+                    with self.timer.span("merge_detect"):
+                        ok, S_cl, pairs = atlas_mod.verify_merge(
+                            self.cam, self.map, cur, sm.map, int(cand), self.merge_draw,
+                            min_inliers=20, th=self.cfg.matcher.th_low, fix_scale=True)
+                    if ok and self._do_merge(si, cur, int(cand), S_cl, pairs):
+                        return True
+        finally:
+            self._merge_guard = False
+        return False
+
+    def _do_merge(self, si: int, cur: int, cand: int, S_cl, pairs) -> bool:
+        """Weld the active map into parked map `si`: the frames in flight
+        are drained first, then the active map is appended with the Sim3
+        weld, its seam duplicates give way to the parked map's points,
+        whole-map BA runs, and the records, culls, database and graph move
+        to the merged map's slots."""
+        sm = self.atlas_stored[si]
+        K = self.map.kf_R.shape[0]
+        M = self.map.mp_pos.shape[0]
+        # the drain can insert keyframes and points: check the capacity after it
+        self.flush()
+        if sm.n_kf + self.n_kf > K - 1 or sm.n_mp + self.n_mp > M - 2:
+            return False
+        with self.timer.span("merge"):
+            kf_off, mp_off = sm.n_kf, sm.n_mp
+            T_cur = SE3(self.map.kf_R[cur], self.map.kf_t[cur])
+            T_cand = SE3(sm.map.kf_R[cand], sm.map.kf_t[cand])
+            S = atlas_mod.weld_transform(S_cl, T_cur, T_cand)
+            self._last_weld_S = S  # the inertial merge rotates its chain by it
+            merged = atlas_mod.merge_into(sm.map, self.map, S, kf_off, mp_off)
+            # seam fusion: the active side's duplicates give way; the pairs
+            # were verified before the drain, so both sides are checked again
+            mp_cur, mp_old, fvalid = pairs
+            src = torch.where(mp_cur >= 0, mp_cur + mp_off, torch.full_like(mp_cur, -1))
+            Mm = merged.mp_valid.shape[0]
+            fvalid = (fvalid & merged.mp_valid[torch.clamp(src, 0, Mm - 1).long()]
+                      & merged.mp_valid[torch.clamp(mp_old, 0, Mm - 1).long()])
+            merged = map_state.fuse_points(merged, src, mp_old, fvalid)
+            prob = steps.gather_global_ba_problem(self.cam, merged)
+            gres = local_ba.bundle_adjust(self.cam, prob, iters=self.cfg.ba.gba_iters,
+                                          assembly="scatter")
+            merged = steps.scatter_global_ba_result(merged, gres.poses, gres.points)
+
+            old_id = self.active_map_id
+            for i, rec in enumerate(self.records):
+                if rec.map_id == old_id:
+                    self.records[i] = FrameRecord(
+                        rec.frame_id, rec.timestamp,
+                        rec.ref_kf + kf_off if rec.ref_kf >= 0 else rec.ref_kf,
+                        rec.T_rel, rec.state, sm.map_id)
+            culled = dict(sm.culled_parent)
+            for k, (p, T) in self.culled_parent.items():
+                culled[k + kf_off] = (p + kf_off, T)
+            self.culled_parent = culled
+            self.map = merged
+            self.n_kf = kf_off + self.n_kf
+            self.n_mp = mp_off + self.n_mp
+            self.ref_kf = self.ref_kf + kf_off
+            self.active_map_id = sm.map_id
+            self.atlas_stored.pop(si)
+
+            # the loop closer adopts the parked map's database and graph and
+            # registers the appended keyframes under their new slots
+            lc = self.loop_closer
+            if lc is not None:
+                shifted = [(a + kf_off, b + kf_off) for a, b in lc.loop_edges]
+                lc.db = sm.db
+                lc.covis = sm.covis
+                lc.loop_edges = sm.loop_edges + shifted
+                lc.last_closed_kf = -(10 ** 9)
+                kf_valid = merged.kf_valid.cpu().numpy()
+                for s_ in range(kf_off, self.n_kf):
+                    if kf_valid[s_]:
+                        lc.add_bow(merged, s_)
+                        lc.register_covis(s_, merged.kf_mp[s_].cpu().numpy())
+            self._after_loop_correction()
+            self.merge_count += 1
+        return True
+
+    def _freeze_active_records(self):
+        """Resolve every record of the active map to its absolute pose
+        (ref_kf = -1), before the active map is discarded."""
+        kf_R = self.map.kf_R.cpu().numpy()
+        kf_t = self.map.kf_t.cpu().numpy()
+        for i, rec in enumerate(self.records):
+            if rec.map_id != self.active_map_id or rec.ref_kf < 0:
+                continue
+            Tcw = rec.T_rel @ self._ref_pose_through_culls(rec.ref_kf, kf_R, kf_t,
+                                                             self.culled_parent)
+            self.records[i] = FrameRecord(rec.frame_id, rec.timestamp, -1, Tcw, rec.state,
+                                          rec.map_id)
+
+    @staticmethod
+    def _ref_pose_through_culls(ref: int, kf_R, kf_t, culled) -> np.ndarray:
+        """T_chain @ Tcw of the first live keyframe up the culled chain
+        from `ref`."""
+        T_chain = np.eye(4)
+        while ref in culled:
+            ref, T_rel = culled[ref]
+            T_chain = T_chain @ T_rel
+        T_ref = np.eye(4)
+        T_ref[:3, :3] = kf_R[ref]
+        T_ref[:3, 3] = kf_t[ref]
+        return T_chain @ T_ref
 
     # ------------------------------------------------------------- outputs
 
     def trajectory_wc(self) -> np.ndarray:
         """(N, 4, 4) Twc of every processed frame, through its reference
-        keyframe's current pose; a culled reference keyframe is replaced
-        by its parent, through the relative pose kept at the cull."""
+        keyframe's current pose in the frame's own map (the active map or
+        a parked one); a culled reference keyframe is replaced by its
+        parent, through the relative pose kept at the cull."""
         self.flush()
-        kf_R = self.map.kf_R.cpu().numpy()
-        kf_t = self.map.kf_t.cpu().numpy()
+        tables = {self.active_map_id: (self.map, self.culled_parent)}
+        for sm in self.atlas_stored:
+            tables[sm.map_id] = (sm.map, sm.culled_parent)
+        tables = {k: (m.kf_R.cpu().numpy(), m.kf_t.cpu().numpy(), c)
+                  for k, (m, c) in tables.items()}
         out = []
         for rec in self.records:
             if rec.ref_kf >= 0:
-                ref = rec.ref_kf
-                T_chain = np.eye(4)
-                while ref in self.culled_parent:
-                    ref, T_rel = self.culled_parent[ref]
-                    T_chain = T_chain @ T_rel
-                T_ref = np.eye(4)
-                T_ref[:3, :3] = kf_R[ref]
-                T_ref[:3, 3] = kf_t[ref]
-                Tcw = rec.T_rel @ T_chain @ T_ref
+                kf_R, kf_t, culled = tables.get(rec.map_id, tables[self.active_map_id])
+                Tcw = rec.T_rel @ self._ref_pose_through_culls(rec.ref_kf, kf_R, kf_t, culled)
             else:
                 Tcw = rec.T_rel
             out.append(np.linalg.inv(Tcw))

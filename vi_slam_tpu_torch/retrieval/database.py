@@ -20,6 +20,7 @@ import torch
 from vi_slam_tpu_torch.ops.fast import top_k
 from vi_slam_tpu_torch.retrieval.vocabulary import score_l1
 from vi_slam_tpu_torch.slam_map.state import MapState
+from vi_slam_tpu_torch.utils.device import resolve_device
 
 
 class DBState(NamedTuple):
@@ -27,7 +28,8 @@ class DBState(NamedTuple):
     valid: torch.Tensor  # (K,) bool
 
 
-def allocate(max_keyframes: int, n_words: int, device="cpu") -> DBState:
+def allocate(max_keyframes: int, n_words: int, device="cuda") -> DBState:
+    device = resolve_device(device)
     return DBState(
         bow=torch.zeros((max_keyframes, n_words), dtype=torch.float32, device=device),
         valid=torch.zeros((max_keyframes,), dtype=torch.bool, device=device),
@@ -131,10 +133,10 @@ def _pull(ids: torch.Tensor, acc: torch.Tensor) -> Tuple[np.ndarray, np.ndarray]
 class KeyFrameDatabase:
     """Host wrapper of the device-resident BoW matrix."""
 
-    def __init__(self, max_keyframes: int, n_words: int, n_cand: int = 16, device="cpu"):
-        self.db = allocate(max_keyframes, n_words, device=device)
+    def __init__(self, max_keyframes: int, n_words: int, n_cand: int = 16, device="cuda"):
+        self.device = resolve_device(device)
+        self.db = allocate(max_keyframes, n_words, device=self.device)
         self.n_cand = n_cand
-        self.device = torch.device(device)
 
     def add(self, slot: int, bow_vec: torch.Tensor) -> None:
         self.db = add(self.db, slot, bow_vec)
