@@ -1,15 +1,19 @@
 """GPU smoke test of the PyTorch port (`vi_slam_tpu_torch`) on one card.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --ate [--perturb SEED ...] [--flush-at N]
+    python3 chip_smoke.py --ate [--klt] [--perturb SEED ...] [--flush-at N]
 
-The second form is not the check: it runs the full phase's loop alone,
-unperturbed and once per seed with 20 pixels of each left image moved by
-one grey level, and prints one JSON line a run (the port's ATE spread).
+The second form is not the check: it runs the full phase's loop (with
+`--klt`, the klt phase's) alone, unperturbed and once per seed with 20
+pixels of each left image moved by one grey level, and prints one JSON
+line a run (the port's ATE spread).
 
 Needs one CUDA card, `nvcc` and `nvidia-smi`; imports nothing of JAX or of
-the JAX package. It runs nine phases in order and prints one line per
-phase with its seconds, flushed as the phase ends:
+the JAX package. The frames are rendered in a pool of worker processes
+(`multiprocessing`, spawned, stopped on the way out). It runs eleven
+phases in order and prints one line per phase with its seconds, flushed
+as the phase ends (and a `render` line for bench.py's 200 frames, which
+the full, klt and rgbd phases share):
 
   device  the card's name and `nvidia-smi` name and power limit;
   build   `nvcc` of vi_slam_tpu_torch/csrc/*.cu into the ignored
@@ -104,18 +108,42 @@ phase with its seconds, flushed as the phase ends:
           initialization stage, the gravity's angle to the truth and the
           biases, keyframes, and the host ms of each program, beside the
           reference's.
+  klt     bench.py --frontend klt: bench.py's configuration with the KLT
+          track-then-redetect frontend over the first 60 frames of
+          bench.py's world, drained before frame 10. It fails on a lost
+          frame where the reference lost none, a trajectory that is not
+          finite, fewer than 2 keyframes from the KLT keyframe branch after
+          the drain, K1 launches other than 2 per extraction, a
+          keyframe-rate program that ran no time where the reference ran
+          it, or a mean ATE further than max(1 cm, 20 %) from the
+          reference's mean over the same five versions of the frames (the
+          unperturbed ones and four one-grey-level perturbations, each run
+          in a worker process on the card; one run's ATE is a draw, ROADMAP
+          F11). It prints each run's ATE beside the reference's,
+          keyframes, map points, rescues and relocalizations, LK calls a
+          frame, steady frames/s, the host ms a KLT frame of LK, the pose
+          passes, the rescue and the keyframe branch, and the LK tracker's
+          (candidate K7) host and device ms a call.
+  rgbd    `process_rgbd` over the first 30 frames of bench.py's world at its
+          configuration: the left images of the full phase and z-buffer
+          depth maps (`synthetic.render_billboard_depth`). It fails on a
+          lost frame where the reference lost none, an ATE further than
+          max(1 cm, 20 %) from the reference's, a trajectory that is not
+          finite, or K1 launches other than 1 a frame; it prints frames/s.
 
 Any failure raises and the script exits non-zero with the traceback. On
 success it prints the `nvidia-smi` line, a JSON line of per-kernel
-measurements ("launches" is the full phase's count; "ms", "plain_ms" and
-"bound_ms" are device times for the 8-level left pyramid of frame 0), and
-last a JSON line
+measurements ("launches" is the full phase's count, "launches_by_phase"
+adds the klt and rgbd phases'; "ms", "plain_ms" and "bound_ms" are device
+times for the 8-level left pyramid of frame 0), and last a JSON line
 {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import json
+import multiprocessing
+import os
 import re
 import subprocess
 import sys
@@ -184,6 +212,36 @@ REF_RING = dict(ate_cm=2.7374575745641176, lost=0, keyframes=25, loop_queries=24
                 loops_closed=1, loop_frames=[109],
                 programs=dict(bow_add=24, detect=21, verify=3, correct=1, gba=1, reloc=0))
 
+# The same for the klt phase: `python tools/slice_reference_ate.py --klt
+# --frames 60 --flush-at 10` with the JAX package of commit f8d4416 (an
+# accuracy figure, not a speed): bench.py --frontend klt over the first 60
+# frames of bench.py's 200-frame world, drained before frame 10. The
+# frames (ids at dispatch) whose keyframe came from the KLT keyframe
+# branch, and those that ran the ORB rescue.
+# The klt phase's ATE gate is over the unperturbed frames and one
+# grey-level perturbation of each of these seeds: `... --klt --frames 60
+# --flush-at 10 --perturb SEED` at the same commit gives
+# perturbed_ate_cm (0 lost, 49 keyframes each).
+KLT_FRAMES = 60
+KLT_SEEDS = (1, 2, 3, 4)
+REF_KLT = dict(ate_cm=5.968677776355511, lost=0, keyframes=49, map_points=14025,
+               perturbed_ate_cm={1: 4.857557321560796, 2: 5.434511345338162,
+                                 3: 4.599345483452369, 4: 3.56095742099975},
+               klt_keyframe_frames=[1, 3, 5, 7, 8, 10, 12, 14, 15, 16, 17, 18, 19, 21, 23, 25, 27,
+                                    29, 30, 31, 32, 33, 34, 35, 36, 37, 38, 39, 40, 41, 42, 43, 44,
+                                    45, 46, 47, 48, 49, 50, 51, 52, 53, 54, 55, 56, 57, 58, 59],
+               rescue_frames=[], relocalizations=0,
+               programs=dict(mapping=24, local_ba=16, maintenance=5))
+REF_KLT_COMMIT = "f8d44161526ea7a72593fc4927d77fa580d27f49"
+
+# The same for the rgbd phase: `python tools/slice_reference_ate.py --rgbd
+# --frames 30` at commit f8d4416: process_rgbd over the first 30 frames of
+# bench.py's world at bench.py's configuration, the depth maps of
+# `synthetic.render_billboard_depth` (an accuracy figure, not a speed).
+RGBD_FRAMES = 30
+REF_RGBD = dict(ate_cm=0.9727923364275151, lost=0, keyframes=13, map_points=5377,
+                programs=dict(mapping=6, local_ba=4, maintenance=1))
+
 # KITTI-00 stereo geometry and the slice world (bench.py's).
 W, H = 1241, 376
 FX = FY = 718.856
@@ -208,6 +266,10 @@ EARLIER_COMMIT = "edc5e27caf275d9a132b48d3d792ab10803fd3a1"
 EARLIER_CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
 EARLIER_PYRAMID_US = 107.0
 EARLIER_PYRAMID_CALL_MS = 0.281
+
+
+def fmt_list(xs) -> str:
+    return "[" + ", ".join(f"{x:.4f}" for x in xs) + "]"
 
 
 def log_phase(name: str, t0: float, detail: str = "") -> None:
@@ -237,17 +299,13 @@ def slice_config(bench_cadences: bool = False):
     )
 
 
-def render_frames(world, n):
+def render_frames(world, n, pool=None):
+    """The stereo pairs of the first `n` poses of a billboard world at
+    KITTI-00 geometry (in `pool`'s processes when given)."""
     from vi_slam_tpu_torch.io import synthetic
 
-    frames = []
-    for i in range(n):
-        Twc = world.poses_wc[i]
-        frames.append((
-            synthetic.render_billboard_image(world, Twc, FX, FY, CX, CY, W, H, baseline=0.0),
-            synthetic.render_billboard_image(world, Twc, FX, FY, CX, CY, W, H, baseline=BF / FX),
-        ))
-    return frames
+    return synthetic.render_stereo_pairs(world, world.poses_wc[:n], FX, FY, CX, CY, W, H,
+                                         BF / FX, pool=pool)
 
 
 def call_ms(fn, reps: int, warm: int = 3) -> float:
@@ -438,7 +496,7 @@ def perturb_frames(frames, seed):
 
 
 def run_loop(cfg, world, n_frames, perturb=None, flush_at=N_WARM, frames=None, vocab=None,
-             all_tracked=True):
+             all_tracked=True, expected_launches=None):
     """Render `n_frames` of `world` (perturbed by `perturb_frames` when
     `perturb` is a seed; or take the given `frames`), warm a StereoVO up on
     the first N_WARM, then drive a fresh one over all of them with the
@@ -446,8 +504,10 @@ def run_loop(cfg, world, n_frames, perturb=None, flush_at=N_WARM, frames=None, v
     and read just after. The pipeline is drained before frame `flush_at`
     (None: never; bench.py drains it where its steady clock starts, as the
     default does here). A vocabulary turns loop closing on; with
-    `all_tracked` a lost frame fails the run. Returns the StereoVO and the
-    run's numbers."""
+    `all_tracked` a lost frame fails the run. The kernel must have launched
+    `expected_launches(frames_done, warm_vo, vo)` times (default: 2 per
+    frame, one per image pyramid). Returns the StereoVO and the run's
+    numbers (the warm StereoVO among them)."""
     import torch
     from vi_slam_tpu_torch.io import evaluation
     from vi_slam_tpu_torch.ops import fast_kernel
@@ -502,10 +562,12 @@ def run_loop(cfg, world, n_frames, perturb=None, flush_at=N_WARM, frames=None, v
     launches = fast_kernel.launches
 
     frames_done = N_WARM + n_frames
-    if launches <= 0 or launches != 2 * frames_done:
+    want = 2 * frames_done if expected_launches is None else expected_launches(
+        frames_done, vo_w, vo)
+    if launches <= 0 or launches != want:
         raise AssertionError(
             f"fast_resp_pref launched {launches} times for {frames_done} frames,"
-            f" expected {2 * frames_done} (one per image pyramid)"
+            f" expected {want} (one per image pyramid)"
         )
     est = vo.trajectory_wc()
     if not np.all(np.isfinite(est)) or est.shape != (n_frames, 4, 4):
@@ -527,13 +589,19 @@ def run_loop(cfg, world, n_frames, perturb=None, flush_at=N_WARM, frames=None, v
         "loop_frames": loop_frames,
         "fork_frames": [f for f, t in atlas_events if t == "fork"],
         "merge_frames": [f for f, t in atlas_events if t == "merge"],
+        "warm_vo": vo_w,
+        "steady_s": t_end - t_steady,
     }
 
 
-def phase_slice(world):
+def phase_slice(world, pool=None):
     """The tracking loop on the card over the slice world, the
     keyframe-rate programs off."""
-    _, sl = run_loop(slice_config(), world, N_FRAMES)
+    t0 = time.perf_counter()
+    frames = render_frames(world, N_FRAMES, pool)
+    render_s = time.perf_counter() - t0
+    _, sl = run_loop(slice_config(), world, N_FRAMES, frames=frames)
+    sl["render_s"] = render_s
     tol_cm = max(1.0, 0.2 * REF_ATE_CM)
     if abs(sl["ate_cm"] - REF_ATE_CM) > tol_cm:
         raise AssertionError(
@@ -549,9 +617,10 @@ def full_world():
                                           speed=1.0)
 
 
-def phase_full():
-    """bench.py's configuration end to end over bench.py's 200-frame world."""
-    vo, full = run_loop(slice_config(bench_cadences=True), full_world(), N_FULL_FRAMES)
+def phase_full(world, frames):
+    """bench.py's configuration end to end over bench.py's 200-frame world
+    (`frames`: its rendered stereo pairs)."""
+    vo, full = run_loop(slice_config(bench_cadences=True), world, N_FULL_FRAMES, frames=frames)
     tol_cm = max(1.0, 0.2 * REF_FULL["ate_cm"])
     if abs(full["ate_cm"] - REF_FULL["ate_cm"]) > tol_cm:
         raise AssertionError(
@@ -640,13 +709,14 @@ def phase_loop_parts():
     return dict(drift=before.max(), graph=out[False], gba=out[True])
 
 
-def loop_world_frames():
+def loop_world_frames(pool=None):
     """bench.py --loop's world (tools/slice_reference_ate.py --loop)."""
     from vi_slam_tpu_torch.io import synthetic
 
     iw, _, frames = synthetic.make_billboard_inertial_sequence(
         N_FULL_FRAMES, FX, FY, CX, CY, W, H, BF, fps=10.0, n_landmarks=2000, n_boards=4000,
         seed=11, closed_loop=True, closed_loop_period_frames=int(N_FULL_FRAMES * 0.8), speed=5.0,
+        pool=pool,
     )
     return iw.world, frames
 
@@ -671,7 +741,7 @@ def vio_config():
     )
 
 
-def phase_vio():
+def phase_vio(pool=None):
     """tools/bench_vio.py's configuration end to end: the stereo-inertial
     pipeline over its 60-frame world with the 200 Hz IMU stream, after a
     warm pass over the first VIO_WARM frames, the pipeline drained before
@@ -683,7 +753,7 @@ def phase_vio():
 
     t0 = time.perf_counter()
     iw, _, frames = synthetic.make_billboard_inertial_sequence(
-        VIO_FRAMES, FX, FY, CX, CY, W, H, BF, n_landmarks=2000, seed=5)
+        VIO_FRAMES, FX, FY, CX, CY, W, H, BF, n_landmarks=2000, seed=5, pool=pool)
     prep_s = time.perf_counter() - t0
     cfg = vio_config()
     fast_kernel.reset_launches()
@@ -758,11 +828,11 @@ def train_loop_vocabulary(cfg, frames):
                                        device="cuda")
 
 
-def phase_loop():
+def phase_loop(pool=None):
     """bench.py --loop's configuration end to end, with the atlas on as
     bench.py runs it."""
     t0 = time.perf_counter()
-    world, frames = loop_world_frames()
+    world, frames = loop_world_frames(pool)
     cfg = slice_config(bench_cadences=True)
     vocab = train_loop_vocabulary(cfg, frames)
     prep_s = time.perf_counter() - t0
@@ -801,7 +871,7 @@ def loop_numbers(vo):
     return runs, host, device
 
 
-def phase_ring():
+def phase_ring(pool=None):
     """The board ring end to end at full width, atlas off: a loop closes
     through `make_stereo_vo`, and its correction and global BA run on the
     card over bench.py's map capacity (256 keyframes, 65,536 points)."""
@@ -811,7 +881,7 @@ def phase_ring():
 
     t0 = time.perf_counter()
     world = synthetic.make_board_ring_loop(RING_FRAMES, RING_PERIOD, RING_RADIUS)
-    frames = render_frames(world, RING_FRAMES)
+    frames = render_frames(world, RING_FRAMES, pool)
     cfg = slice_config(bench_cadences=True)
     cfg = cfg.replace(tracker=dataclasses.replace(cfg.tracker, atlas_enabled=False))
     vocab = train_loop_vocabulary(cfg, frames)
@@ -834,24 +904,220 @@ def phase_ring():
     return r
 
 
-def ate_runs(seeds, flush_at) -> None:
-    """The full phase's loop alone, unperturbed and once per perturbation
-    seed, with the pipeline drained before frame `flush_at` (None: never);
-    one JSON line a run, for the spread of the port's ATE beside the
-    reference's (`tools/slice_reference_ate.py --perturb SEED`)."""
+def klt_config():
+    """bench.py --frontend klt: bench.py's configuration with the KLT
+    frontend."""
+    import dataclasses
+
+    cfg = slice_config(bench_cadences=True)
+    return cfg.replace(tracker=dataclasses.replace(cfg.tracker, frontend="klt"))
+
+
+def klt_variant(seed):
+    """The klt phase's loop over its frames with 20 pixels of each left
+    image moved by one grey level (`perturb_frames(..., seed)`), run in a
+    worker process on the card (the kernel library the parent built);
+    returns its ATE, lost frames and keyframes. Raises as `run_loop` does
+    (launch count, finite trajectory)."""
+    import torch
+    from vi_slam_tpu_torch.kernels import build as kbuild
+
+    torch.set_num_threads(1)
+    kbuild.load_library()
+    world = full_world()
+    _, r = run_loop(klt_config(), world, KLT_FRAMES, perturb=seed,
+                    frames=render_frames(world, KLT_FRAMES), all_tracked=False,
+                    expected_launches=lambda n, w, v: 2 * (w.n_extractions + v.n_extractions))
+    return dict(seed=seed, ate_cm=r["ate_cm"], lost=r["lost"], keyframes=r["keyframes"])
+
+
+def phase_klt(world, frames, pool):
+    """bench.py --frontend klt over the first KLT_FRAMES frames of bench.py's
+    world, drained before frame N_WARM as bench.py drains it. K1 runs in
+    every extraction (initialization, rescues, keyframes, failed frames):
+    2 launches each.
+
+    The ATE of one run of this world is a draw: one grey level on 20
+    pixels a frame moves the reference's between 3.56 and 5.97 cm (ROADMAP
+    F11). So the ATE gate compares like with like over the same five
+    versions of the frames, the unperturbed ones and those of KLT_SEEDS:
+    the mean of the port's ATEs must lie within max(1 cm, 20 %) of the mean
+    of the reference's. The perturbed runs go to `pool`'s workers while
+    this process runs the unperturbed one; every run must lose no frame
+    where the reference's lost none."""
+    import torch
+    from vi_slam_tpu_torch.ops import klt
+
+    pending = [pool.apply_async(klt_variant, (seed,)) for seed in KLT_SEEDS]
+    lk_calls = [0]
+    track = klt.track_pyramidal
+
+    def counted(*a, **kw):
+        lk_calls[0] += 1
+        return track(*a, **kw)
+
+    klt.track_pyramidal = counted
+    try:
+        vo, r = run_loop(klt_config(), world, KLT_FRAMES, frames=frames[:KLT_FRAMES],
+                         all_tracked=False,
+                         expected_launches=lambda n, w, v: 2 * (w.n_extractions + v.n_extractions))
+    finally:
+        klt.track_pyramidal = track
+    variants = [p.get(timeout=900) for p in pending]
+    ref = REF_KLT
+    ref_ates = [ref["ate_cm"]] + [ref["perturbed_ate_cm"][s] for s in KLT_SEEDS]
+    port_ates = [r["ate_cm"]] + [v["ate_cm"] for v in variants]
+    lost = [r["lost"]] + [v["lost"] for v in variants]
+    if ref["lost"] == 0 and any(lost):
+        raise AssertionError(f"frames lost {lost} (unperturbed, then seeds {KLT_SEEDS}) where"
+                             " the reference lost none")
+    ref_mean, port_mean = float(np.mean(ref_ates)), float(np.mean(port_ates))
+    tol_cm = max(1.0, 0.2 * ref_mean)
+    if abs(port_mean - ref_mean) > tol_cm:
+        raise AssertionError(f"mean ATE {port_mean:.4f} cm (runs {port_ates}) vs the reference's"
+                             f" {ref_mean:.4f} cm (runs {ref_ates}), tolerance {tol_cm:.4f} cm")
+    klt_kfs = [f for f in vo.klt_kf_frames if f >= N_WARM]
+    if len(klt_kfs) < 2:
+        raise AssertionError(f"{len(klt_kfs)} keyframes from the KLT keyframe branch after the"
+                             f" drain (frames {vo.klt_kf_frames})")
+    programs = ("mapping", "local_ba", "maintenance")
+    runs = {k: vo.program_runs[k] for k in programs}
+    idle = [k for k in programs if ref["programs"].get(k, 0) > 0 and runs[k] <= 0]
+    if idle:
+        raise AssertionError(f"programs that ran no time where the reference ran them: {idle}"
+                             f" (port {runs}, reference {ref['programs']})")
+    # the frames that ran the KLT frame program (two pose passes each);
+    # the others initialized
+    n_klt, n_klt_all = (v.klt_timer.runs["pose"] // 2 for v in (vo, r["warm_vo"]))
+    n_klt_all += n_klt
+    host = {k: vo.klt_timer.host_s[k] * 1e3 / n_klt for k in vo.klt_timer.host_s}
+    k7 = measure_k7(vo, frames[KLT_FRAMES - 2:KLT_FRAMES])
+    torch.cuda.synchronize()
+    r.update(port_ates=port_ates, ref_ates=ref_ates, port_mean=port_mean, ref_mean=ref_mean,
+             tol_cm=tol_cm, variant_keyframes=[v["keyframes"] for v in variants],
+             klt_kf_frames=vo.klt_kf_frames, rescue_frames=vo.rescue_frames,
+             relocalized=vo.n_relocalized, runs=runs, extractions=vo.n_extractions
+             + r["warm_vo"].n_extractions, lk_per_frame=lk_calls[0] / n_klt_all,
+             host_ms=host, k7=k7)
+    return r
+
+
+def measure_k7(vo, pair):
+    """`ops/klt.py::track_pyramidal` (candidate K7) on the card at the
+    main path's shapes: the run's live track set from the left pyramid of
+    the second-to-last frame into the last one's, guessed at its own
+    positions. Host ms to dispatch a call; device ms a call, the sum of its
+    kernels' times by `torch.profiler` (a call is host-bound, so CUDA events
+    around it time the host); ms a call from its start to the end of its
+    device work, by CUDA events; kernels a call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from vi_slam_tpu_torch.ops import klt
+
+    imgs = [vo._upload_images(*p) for p in pair]
+    pa, pb = vo._pyramid(imgs[0]), vo._pyramid(imgs[1])
+    tr = vo.cfg.tracker
+    xy, valid = vo.trk_xy, vo.trk_valid
+
+    def call():
+        return klt.track_pyramidal(pa, pb, xy, valid, xy_guess=xy, half=tr.klt_half,
+                                   iters=tr.klt_iters, max_residual=tr.klt_max_residual)
+
+    for _ in range(3):
+        call()
+    torch.cuda.synchronize()
+    reps = 10
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        call()
+    host_ms = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / reps
+    return dict(tracks=int(valid.sum()), capacity=int(xy.shape[0]), host_ms=host_ms,
+                device_ms=device_ms, kernels=sum(e.count for e in kernels) / reps,
+                call_ms=call_ms(call, reps))
+
+
+def phase_rgbd(world, frames):
+    """`process_rgbd` over the first RGBD_FRAMES frames of bench.py's world
+    at bench.py's configuration: the full phase's left images and the
+    z-buffer depth maps of `synthetic.render_billboard_depth`, after a warm
+    pass over the first N_WARM frames. K1: one launch a frame (one image)."""
+    import torch
+    from vi_slam_tpu_torch.io import evaluation, synthetic
+    from vi_slam_tpu_torch.ops import fast_kernel
+    from vi_slam_tpu_torch.pipeline.stereo_vo import make_stereo_vo
+
+    t0 = time.perf_counter()
+    depths = [synthetic.render_billboard_depth(world, world.poses_wc[i], FX, FY, CX, CY, W, H)
+              for i in range(RGBD_FRAMES)]
+    prep_s = time.perf_counter() - t0
+    cfg = slice_config(bench_cadences=True)
+    fast_kernel.reset_launches()
+    warm = make_stereo_vo(cfg)
+    for i in range(N_WARM):
+        warm.process_rgbd(frames[i][0], depths[i], i * 0.1)
+    vo = make_stereo_vo(cfg)
+    for i in range(RGBD_FRAMES):
+        if i == N_WARM:
+            torch.cuda.synchronize()
+            t_steady = time.perf_counter()
+        vo.process_rgbd(frames[i][0], depths[i], i * 0.1)
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    launches = fast_kernel.launches
+    done = N_WARM + RGBD_FRAMES
+    if launches != done:
+        raise AssertionError(f"fast_resp_pref launched {launches} times for {done} RGB-D frames,"
+                             f" expected {done} (one image a frame)")
+    est = vo.trajectory_wc()
+    if not np.all(np.isfinite(est)) or est.shape != (RGBD_FRAMES, 4, 4):
+        raise AssertionError(f"trajectory not finite or of shape {est.shape}")
+    ref = REF_RGBD
+    lost = sum(1 for rec in vo.records if rec.state != "OK")
+    if ref["lost"] == 0 and lost > 0:
+        raise AssertionError(f"{lost} frames lost where the reference lost none")
+    ate_cm = evaluation.ate_rmse(est[:, :3, 3], world.poses_wc[:RGBD_FRAMES, :3, 3])["rmse"] * 100
+    tol_cm = max(1.0, 0.2 * ref["ate_cm"])
+    if abs(ate_cm - ref["ate_cm"]) > tol_cm:
+        raise AssertionError(f"ATE {ate_cm:.4f} cm vs reference {ref['ate_cm']:.4f} cm"
+                             f" (tolerance {tol_cm:.4f} cm)")
+    return dict(prep_s=prep_s, steady_fps=(RGBD_FRAMES - N_WARM) / (t_end - t_steady),
+                ate_cm=ate_cm, lost=lost, keyframes=vo.n_kf, map_points=vo.n_mp,
+                launches=launches, frames=done, runs=dict(vo.program_runs))
+
+
+def ate_runs(seeds, flush_at, klt: bool = False) -> None:
+    """The full phase's loop alone (with `klt`, the klt phase's),
+    unperturbed and once per perturbation seed, with the pipeline drained
+    before frame `flush_at` (None: never); one JSON line a run, for the
+    spread of the port's ATE beside the reference's
+    (`tools/slice_reference_ate.py --perturb SEED`)."""
     import torch
     from vi_slam_tpu_torch.kernels import build as kbuild
 
     kbuild.build()
     kbuild.load_library()
-    world, cfg = full_world(), slice_config(bench_cadences=True)
+    world = full_world()
+    cfg, n = (klt_config(), KLT_FRAMES) if klt else (slice_config(bench_cadences=True),
+                                                       N_FULL_FRAMES)
+    frames = render_frames(world, n)
     for seed in [None] + list(seeds):
-        vo, r = run_loop(cfg, world, N_FULL_FRAMES, perturb=seed, flush_at=flush_at)
+        vo, r = run_loop(cfg, world, n, perturb=seed, flush_at=flush_at, frames=frames,
+                         all_tracked=not klt, expected_launches=(lambda f, w, v: 2 * (
+                             w.n_extractions + v.n_extractions)) if klt else None)
         print(json.dumps({
             "perturb": seed, "flush_at": flush_at, "ate_cm": r["ate_cm"], "lost": r["lost"],
             "keyframes": r["keyframes"], "map_points": r["map_points"],
             "culled_keyframes": len(vo.culled_parent), "runs": vo.program_runs,
             "steady_fps": r["steady_fps"], "device": torch.cuda.get_device_name(0),
+            **({"klt_kf_frames": vo.klt_kf_frames, "rescue_frames": vo.rescue_frames}
+               if klt else {}),
         }), flush=True)
 
 
@@ -867,14 +1133,29 @@ def main(argv) -> int:
                     help="with --ate: also one run per seed, one grey level moved")
     ap.add_argument("--flush-at", type=int, default=N_WARM, metavar="N",
                     help="with --ate: drain the pipeline before frame N (-1: never)")
+    ap.add_argument("--klt", action="store_true",
+                    help="with --ate: the klt phase's loop instead of the full phase's")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke test needs a GPU",
               file=sys.stderr)
         return 1
     if args.ate:
-        ate_runs(args.perturb, None if args.flush_at < 0 else args.flush_at)
+        ate_runs(args.perturb, None if args.flush_at < 0 else args.flush_at, klt=args.klt)
         return 0
+    # the frames of every phase are rendered in worker processes; the pool
+    # is stopped on the way out, whatever happens
+    pool = multiprocessing.get_context("spawn").Pool(min(8, os.cpu_count() or 1))
+    try:
+        return check(pool)
+    finally:
+        pool.terminate()
+        pool.join()
+
+
+def check(pool) -> int:
+    """The phases in order; any failure raises."""
+    import torch
     from vi_slam_tpu_torch.io import synthetic
     from vi_slam_tpu_torch.kernels import build as kbuild
     from vi_slam_tpu_torch.utils.device import resolve_device
@@ -912,7 +1193,7 @@ def main(argv) -> int:
               f" | {ptxas}")
 
     t0 = time.perf_counter()
-    sl = phase_slice(world)
+    sl = phase_slice(world, pool)
     log_phase("slice", t0,
               f"| render {sl['render_s']:.1f} s | steady {sl['steady_fps']:.3f} frames/s"
               f" (all {sl['all_fps']:.3f}) | ATE {sl['ate_cm']:.4f} cm"
@@ -921,7 +1202,12 @@ def main(argv) -> int:
               f" | fast_resp_pref launches {sl['launches']} for {sl['frames']} frames")
 
     t0 = time.perf_counter()
-    full = phase_full()
+    bench_world = full_world()
+    bench_frames = render_frames(bench_world, N_FULL_FRAMES, pool)
+    log_phase("render", t0, f"| bench.py's world, {N_FULL_FRAMES} stereo pairs at {W}x{H}")
+
+    t0 = time.perf_counter()
+    full = phase_full(bench_world, bench_frames)
     runs, host = full["runs"], full["host_ms"]
     per_run = ", ".join(
         f"{k} {host[k]:.1f} ms ({host[k] / runs[k]:.2f} ms a run)" for k in host)
@@ -956,7 +1242,7 @@ def main(argv) -> int:
               f" {spans(lp['gba'], 'correct')} | global BA: {spans(lp['gba'], 'gba')}")
 
     t0 = time.perf_counter()
-    lo = phase_loop()
+    lo = phase_loop(pool)
     ref = REF_LOOP
     per_prog = ", ".join(
         f"{k} {lo['runs'][k]} runs (reference {ref['programs'].get(k, 0)}) {lo['host_ms'][k]:.1f} ms"
@@ -981,7 +1267,7 @@ def main(argv) -> int:
               f" {lo['launches']} for {lo['frames']} frames")
 
     t0 = time.perf_counter()
-    ri = phase_ring()
+    ri = phase_ring(pool)
     ref = REF_RING
 
     def span(name):
@@ -1002,7 +1288,7 @@ def main(argv) -> int:
               f" {ref['programs']}) | fast_resp_pref launches {ri['launches']} for"
               f" {ri['frames']} frames")
     t0 = time.perf_counter()
-    vi = phase_vio()
+    vi = phase_vio(pool)
     ref = REF_VIO
 
     def vec(a):
@@ -1026,6 +1312,45 @@ def main(argv) -> int:
               f" {vec(vi['ba'])} (reference {vec(ref['bias_acc'])}, truth"
               f" {vec(ref['bias_acc_true'])}) | {prog} | fast_resp_pref launches"
               f" {vi['launches']} for {vi['frames']} frames")
+    t0 = time.perf_counter()
+    kl = phase_klt(bench_world, bench_frames, pool)
+    ref = REF_KLT
+    host = ", ".join(f"{k} {v:.2f}" for k, v in kl["host_ms"].items())
+    k7 = kl["k7"]
+    log_phase("klt", t0,
+              f"| bench.py --frontend klt, {KLT_FRAMES} frames | steady"
+              f" {kl['steady_fps']:.3f} frames/s (all {kl['all_fps']:.3f}; {len(KLT_SEEDS)}"
+              f" perturbed runs in worker processes meanwhile) | ATE {kl['ate_cm']:.4f} cm"
+              f" (reference {ref['ate_cm']:.4f} cm at {REF_KLT_COMMIT[:7]}) | ATE of the"
+              f" unperturbed and seeds {KLT_SEEDS} runs {fmt_list(kl['port_ates'])} cm (reference"
+              f" {fmt_list(kl['ref_ates'])}), mean {kl['port_mean']:.4f} cm (reference"
+              f" {kl['ref_mean']:.4f} cm, tolerance {kl['tol_cm']:.4f} cm), keyframes of the"
+              f" perturbed runs {kl['variant_keyframes']} | lost"
+              f" {kl['lost']} (reference {ref['lost']}) | keyframes {kl['keyframes']} (reference"
+              f" {ref['keyframes']}), from the KLT keyframe branch at frames {kl['klt_kf_frames']}"
+              f" (reference {ref['klt_keyframe_frames']}) | map points {kl['map_points']}"
+              f" (reference {ref['map_points']}) | rescues at frames {kl['rescue_frames']}"
+              f" (reference {ref['rescue_frames']}) | relocalizations {kl['relocalized']}"
+              f" (reference {ref['relocalizations']}) | runs {kl['runs']} (reference"
+              f" {ref['programs']}) | LK calls a frame {kl['lk_per_frame']:.3f} | host ms a KLT"
+              f" frame: {host} | K7 track_pyramidal, {k7['tracks']} live tracks of"
+              f" {k7['capacity']}: host {k7['host_ms']:.3f} ms a call, device (its"
+              f" {k7['kernels']:.0f} kernels) {k7['device_ms']:.3f} ms a call,"
+              f" {k7['call_ms']:.3f} ms a call to its end"
+              f" | fast_resp_pref launches {kl['launches']} for {kl['extractions']} extractions"
+              f" in {kl['frames']} frames")
+
+    t0 = time.perf_counter()
+    rg = phase_rgbd(bench_world, bench_frames)
+    ref = REF_RGBD
+    log_phase("rgbd", t0,
+              f"| process_rgbd, bench.py's configuration, {RGBD_FRAMES} frames | depth maps"
+              f" {rg['prep_s']:.1f} s | steady {rg['steady_fps']:.3f} frames/s | ATE"
+              f" {rg['ate_cm']:.4f} cm (reference {ref['ate_cm']:.4f} cm, tolerance"
+              f" {max(1.0, 0.2 * ref['ate_cm']):.4f} cm) | lost {rg['lost']} (reference"
+              f" {ref['lost']}) | keyframes {rg['keyframes']} (reference {ref['keyframes']}) | map"
+              f" points {rg['map_points']} (reference {ref['map_points']}) | runs {rg['runs']}"
+              f" | fast_resp_pref launches {rg['launches']} for {rg['frames']} frames")
     print(f"total: {time.perf_counter() - t_start:.2f} s", flush=True)
 
     print(smi, flush=True)
@@ -1035,6 +1360,8 @@ def main(argv) -> int:
         "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES,
         "launches": full["launches"],
+        "launches_by_phase": {"full": full["launches"], "klt": kl["launches"],
+                              "rgbd": rg["launches"]},
         "max_abs_err": max(r["err"] for r in rows),
         "ms": kern["ms"],
         "plain_ms": kern["plain_ms"],

@@ -98,6 +98,16 @@ def test_inertial_slice_modules_are_checked(module):
     assert ROOT / "vi_slam_tpu_torch" / module in _port_files()
 
 
+SLICE_5_MODULES = ("ops/klt.py", "ops/harris.py", "pipeline/klt_vo.py")
+
+
+@pytest.mark.parametrize("module", SLICE_5_MODULES)
+def test_klt_slice_modules_are_checked(module):
+    """The KLT slice's modules are among the files checked above and in
+    the import test below."""
+    assert ROOT / "vi_slam_tpu_torch" / module in _port_files()
+
+
 def _no_cuda(monkeypatch):
     import torch
 
@@ -106,18 +116,26 @@ def _no_cuda(monkeypatch):
 
 def test_entry_points_raise_without_cuda(monkeypatch):
     """Every entry point defaults to the card and raises without one:
-    make_stereo_inertial_vo, make_oracle_features, the BoW database and its
-    allocation."""
+    make_stereo_inertial_vo, the KLT frontend (through either module's
+    make_stereo_vo, and KltStereoVO itself), make_oracle_features, the BoW
+    database and its allocation."""
+    import dataclasses
+
     import numpy as np
 
+    from vi_slam_tpu_torch.pipeline import klt_vo, stereo_vo
     from vi_slam_tpu_torch.pipeline.stereo_vo import make_oracle_features
     from vi_slam_tpu_torch.pipeline.vio import make_stereo_inertial_vo
     from vi_slam_tpu_torch.retrieval import database
-    from vi_slam_tpu_torch.utils.config import SystemConfig
+    from vi_slam_tpu_torch.utils.config import SystemConfig, TrackerConfig
 
     _no_cuda(monkeypatch)
+    klt = dataclasses.replace(SystemConfig(), tracker=TrackerConfig(frontend="klt"))
     calls = [
         lambda: make_stereo_inertial_vo(SystemConfig()),
+        lambda: klt_vo.make_stereo_vo(klt),
+        lambda: stereo_vo.make_stereo_vo(klt),
+        lambda: klt_vo.KltStereoVO(klt),
         lambda: make_oracle_features(4, np.zeros((2, 2)), np.zeros(2), np.zeros(2),
                                      np.zeros((2, 8), np.uint32), np.zeros(2, np.int32)),
         lambda: database.KeyFrameDatabase(8, 16),
@@ -138,6 +156,20 @@ def test_smoother_raises():
 
     cfg = dataclasses.replace(SystemConfig(), ba=BAConfig(use_smoother=True))
     with pytest.raises(NotImplementedError, match="smoother"):
+        make_stereo_inertial_vo(cfg, device="cpu")
+
+
+def test_klt_stereo_inertial_raises():
+    """The reference has no KLT stereo-inertial pipeline (its
+    StereoInertialVO is a StereoVO): frontend "klt" raises
+    NotImplementedError, before any device is touched."""
+    import dataclasses
+
+    from vi_slam_tpu_torch.pipeline.vio import make_stereo_inertial_vo
+    from vi_slam_tpu_torch.utils.config import SystemConfig, TrackerConfig
+
+    cfg = dataclasses.replace(SystemConfig(), tracker=TrackerConfig(frontend="klt"))
+    with pytest.raises(NotImplementedError, match="ORB frontend only"):
         make_stereo_inertial_vo(cfg, device="cpu")
 
 

@@ -183,13 +183,24 @@ def test_keyframe_rate_programs_raise():
 
 
 def test_entry_point_defaults_to_cuda_and_refuses_other_frontends(monkeypatch):
+    """`make_stereo_vo` defaults to the card and raises without one, for
+    either frontend. It picks the frontend as the reference's does: "klt"
+    gives the KLT frontend, any other name the ORB frontend. (The name is
+    the test's from before the KLT frontend was ported, when "klt" was
+    refused.)"""
+    from vi_slam_tpu_torch.pipeline.klt_vo import KltStereoVO
+    from vi_slam_tpu_torch.pipeline.stereo_vo import StereoVO
+
     cfg = config_from_dict(dataclasses.asdict(_cfg()))
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="cuda"):
-        make_stereo_vo(cfg)
     klt = config_from_dict(dataclasses.asdict(_cfg(frontend="klt")))
-    with pytest.raises(NotImplementedError):
-        make_stereo_vo(klt, device="cpu")
+    other = config_from_dict(dataclasses.asdict(_cfg(frontend="harris")))
+    assert type(make_stereo_vo(klt, device="cpu")) is KltStereoVO
+    assert type(make_stereo_vo(other, device="cpu")) is StereoVO
+    assert type(make_stereo_vo(cfg, device="cpu")) is StereoVO
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for c in (cfg, klt):
+        with pytest.raises(RuntimeError, match="cuda"):
+            make_stereo_vo(c)
 
 
 # ------------------------------------------------- the cadences on

@@ -39,6 +39,8 @@ corrected (the frames dispatched when the correction ends).
     JAX_PLATFORMS=cpu python tools/slice_reference_ate.py --loop --frames 200 --flush-at 10 [--no-atlas]
     JAX_PLATFORMS=cpu python tools/slice_reference_ate.py --ring --frames 120 --flush-at 10 --no-atlas
     JAX_PLATFORMS=cpu python tools/slice_reference_ate.py --vio --frames 60 --flush-at 8
+    JAX_PLATFORMS=cpu python tools/slice_reference_ate.py --klt --frames 60 --flush-at 10
+    JAX_PLATFORMS=cpu python tools/slice_reference_ate.py --rgbd --frames 30
 
 With `--vio` it runs `tools/bench_vio.py`'s configuration instead: the
 stereo-inertial pipeline (`StereoInertialVO.process_stereo_inertial`) over
@@ -49,6 +51,21 @@ the estimated gyro and accelerometer biases beside the truth, the angle of
 the estimated gravity to the truth, and the runs of each program
 (integration, inertial track, inertial init, VI local BA, full inertial BA,
 mapping pass, maintenance).
+
+With `--klt` it runs bench.py's configuration with `frontend="klt"`
+(`bench.py --frontend klt`: the KLT track-then-redetect frontend of
+`pipeline/klt_vo.py`) over the first F frames of bench.py's 200-frame world
+(`make_billboard_world(n_frames=200, n_boards=4000, seed=11, speed=1.0)`).
+It adds the KLT figures: the frames whose ORB rescue ran, the keyframes
+made by the KLT keyframe branch (frames), relocalizations, and the runs of
+the keyframe-rate programs.
+
+With `--rgbd` it runs `StereoVO.process_rgbd` over the same world's first
+F frames at bench.py's configuration: the left images as `--klt` renders
+them, and depth maps from the port's numpy z-buffer
+(`vi_slam_tpu_torch.io.synthetic.render_billboard_depth`, the rasterizer
+of tests/test_lifecycle.py), so that the reference gets the same maps as
+`chip_smoke.py`'s rgbd phase.
 
 This is an accuracy figure, not a speed: `chip_smoke.py` holds the port's
 ATE on the GPU to it.
@@ -67,6 +84,7 @@ reference's own ATE moves under it.
 """
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -262,6 +280,93 @@ def instrument_loop(vo, counts):
     count_calls(vo, "_do_merge", counts, "merge_try", success=lambda ok: ok)
 
 
+BENCH_WORLD_FRAMES = 200  # bench.py's --frames default: its world's length
+
+
+def bench_world():
+    return synthetic.make_billboard_world(n_frames=BENCH_WORLD_FRAMES, n_boards=4000, seed=11,
+                                          speed=1.0)
+
+
+def stereo_pair(world, Twc):
+    return (synthetic.render_billboard_image(world, Twc, FX, FY, CX, CY, W, H, baseline=0.0),
+            synthetic.render_billboard_image(world, Twc, FX, FY, CX, CY, W, H,
+                                             baseline=BF / FX))
+
+
+def run_klt(args):
+    """bench.py --frontend klt over the first `args.frames` frames of its
+    world: (figures, StereoVO, world)."""
+    cfg = slice_config(bench_cadences=True)
+    cfg = cfg.replace(tracker=dataclasses.replace(cfg.tracker, frontend="klt"))
+    world = bench_world()
+    vo = make_stereo_vo(cfg)
+    counts, rescues, klt_kfs = {}, [], []
+    for attr, key in (("_mapping_fn", "mapping"), ("_local_ba_fn", "local_ba"),
+                      ("_maintenance_fn", "maintenance"), ("_extract_pair_fn", "extract")):
+        count_calls(vo, attr, counts, key)
+    count_calls(vo, "_try_relocalize", counts, "reloc", success=lambda n: n > 0)
+    frame_fn, track = vo._frame_klt_fn, vo._track_core
+    dispatched = [-1]
+
+    def track_core(mstate, ref_slot, *a):  # traced into the rescue branch
+        jax.debug.callback(lambda _: rescues.append(dispatched[0]), ref_slot)
+        return track(mstate, ref_slot, *a)
+
+    def frame(*a):  # a[10]: the frame id
+        dispatched[0] = int(a[10])
+        out = frame_fn(*a)
+        jax.block_until_ready(out)  # the rescue's callback has run
+        if np.asarray(out[0].packed)[30] > 0:
+            klt_kfs.append(dispatched[0])
+        return out
+
+    vo._frame_klt_fn, vo._track_core = frame, track_core
+    rng = np.random.default_rng(args.perturb) if args.perturb is not None else None
+    t0 = time.time()
+    for i in range(args.frames):
+        if i == args.flush_at:
+            vo.flush()
+        imgL, imgR = stereo_pair(world, world.poses_wc[i])
+        if rng is not None:
+            imgL = perturbed(imgL, rng)
+        vo.process_stereo(imgL, imgR, i * 0.1)
+        print(f"frame {i} {time.time() - t0:.1f}s", file=sys.stderr, flush=True)
+    return {"programs": counts, "klt_keyframe_frames": klt_kfs, "rescue_frames": rescues,
+            "relocalizations": counts.get("reloc_ok", 0)}, vo, world
+
+
+def perturbed(img, rng):
+    """img with 20 random pixels moved by one grey level (`--perturb`)."""
+    img = np.array(img, np.float32)
+    idx = rng.integers(0, img.size, 20)
+    img.flat[idx] = np.clip(img.flat[idx] + rng.choice([-1.0, 1.0], 20), 0, 255)
+    return img
+
+
+def run_rgbd(args):
+    """StereoVO.process_rgbd over the first `args.frames` frames of
+    bench.py's world: (figures, StereoVO, world)."""
+    from vi_slam_tpu_torch.io import synthetic as port_synthetic
+    from vi_slam_tpu.pipeline.stereo_vo import StereoVO
+
+    cfg = slice_config(bench_cadences=True)
+    world = bench_world()
+    vo = StereoVO(cfg)
+    counts = {}
+    for attr, key in (("_mapping_fn", "mapping"), ("_local_ba_fn", "local_ba"),
+                      ("_maintenance_fn", "maintenance")):
+        count_calls(vo, attr, counts, key)
+    t0 = time.time()
+    for i in range(args.frames):
+        Twc = world.poses_wc[i]
+        img = synthetic.render_billboard_image(world, Twc, FX, FY, CX, CY, W, H, baseline=0.0)
+        depth = port_synthetic.render_billboard_depth(world, Twc, FX, FY, CX, CY, W, H)
+        vo.process_rgbd(img, depth, i * 0.1)
+        print(f"frame {i} {time.time() - t0:.1f}s", file=sys.stderr, flush=True)
+    return {"programs": counts}, vo, world
+
+
 def git_commit() -> str:
     return subprocess.run(
         ["git", "rev-parse", "HEAD"], capture_output=True, text=True,
@@ -285,7 +390,24 @@ def main():
     ap.add_argument("--no-atlas", action="store_true", help="atlas_enabled=False")
     ap.add_argument("--vio", action="store_true",
                     help="tools/bench_vio.py's stereo-inertial configuration and world")
+    ap.add_argument("--klt", action="store_true",
+                    help="bench.py --frontend klt over the first --frames of its world")
+    ap.add_argument("--rgbd", action="store_true",
+                    help="process_rgbd over the first --frames of bench.py's world")
     args = ap.parse_args()
+    if args.klt or args.rgbd:
+        t0 = time.time()
+        extra, vo, world = (run_klt if args.klt else run_rgbd)(args)
+        est = vo.trajectory_wc()
+        ate = evaluation.ate_rmse(est[:, :3, 3], world.poses_wc[:args.frames, :3, 3])
+        out = {"frames": args.frames, "world": "klt" if args.klt else "rgbd",
+               "flush_at": args.flush_at, "perturb": args.perturb, "ate_cm": ate["rmse"] * 100.0,
+               "lost": sum(1 for r in vo.records if r.state != "OK"),
+               "keyframes": vo.n_kf, "map_points": vo.n_mp, **extra,
+               "commit": git_commit(), "platform": jax.devices()[0].platform,
+               "seconds": time.time() - t0}
+        print(json.dumps(out))
+        return
     if args.vio:
         t0 = time.time()
         extra, vo, ate = run_vio(args)
@@ -342,9 +464,7 @@ def main():
             imgR = synthetic.render_billboard_image(
                 world, Twc, FX, FY, CX, CY, W, H, baseline=BF / FX)
         if rng is not None:
-            imgL = np.array(imgL, np.float32)
-            idx = rng.integers(0, imgL.size, 20)
-            imgL.flat[idx] = np.clip(imgL.flat[idx] + rng.choice([-1.0, 1.0], 20), 0, 255)
+            imgL = perturbed(imgL, rng)
         vo.process_stereo(imgL, imgR, i * 0.1)
         print(f"frame {i} {time.time() - t0:.1f}s", file=sys.stderr,
               flush=True)

@@ -32,9 +32,20 @@ then adds each run's loop figures (queries, loops closed, relocalized
 frames, the frames where loops close) and the first frame where the lost
 or tracked state differs.
 
+With `--klt` it runs bench.py --frontend klt over the first F frames of
+bench.py's 200-frame world (bench.py's cadences, the pipeline drained
+before frame 10, as the smoke's klt phase runs): the reference first,
+with every extraction recorded by the bytes of its image pair
+(`tests/test_torch_klt_vo.py::ReferenceFeatures`), then the own and the
+fed port. The line adds each run's rescue frames and keyframe frames, and
+at the fed port's first departing frame the port's frame program run on
+the reference's own inputs of that frame: where its counts equal the
+reference's, the departure comes from the state before that frame.
+
     JAX_PLATFORMS=cpu python tools/torch_parity_report.py [--frames 100]
     JAX_PLATFORMS=cpu python tools/torch_parity_report.py --bench-cadences --frames 200
     JAX_PLATFORMS=cpu python tools/torch_parity_report.py --loop --frames 200
+    JAX_PLATFORMS=cpu python tools/torch_parity_report.py --klt --frames 60
 """
 
 import argparse
@@ -199,6 +210,103 @@ def state_departure(ref, other):
     return None
 
 
+def klt_report(n: int) -> None:
+    """The KLT frontend's reference, own and fed runs; one JSON line."""
+    from test_torch_klt_vo import ReferenceFeatures, pair_key
+
+    t0 = time.time()
+    world = synthetic.make_billboard_world(n_frames=chip_smoke.N_FULL_FRAMES, n_boards=4000,
+                                           seed=11, speed=1.0)
+    frames = chip_smoke.render_frames(world, n)
+    ref_cfg = ref_slice_config(True)
+    ref_cfg = ref_cfg.replace(tracker=dataclasses.replace(ref_cfg.tracker, frontend="klt"))
+    port_cfg = config_from_dict(dataclasses.asdict(ref_cfg))
+    runs, stats, extra = {}, {}, {}
+    ref = ref_make_stereo_vo(ref_cfg)
+    store = ReferenceFeatures(ref)
+    own = make_stereo_vo(port_cfg, device="cpu")
+    fed = make_stereo_vo(port_cfg, device="cpu")
+    store.feed(fed)
+    for name, vo in (("ref", ref), ("own", own), ("fed", fed)):
+        stats[name] = {}
+        record_frames(vo, stats[name])
+        for i, (imgL, imgR) in enumerate(frames):
+            if i == chip_smoke.N_WARM:
+                vo.flush()
+            vo.process_stereo(imgL, imgR, i * 0.1)
+            print(f"{name} frame {i} {time.time() - t0:.1f}s", file=sys.stderr, flush=True)
+        traj = vo.trajectory_wc()
+        ate = ref_evaluation.ate_rmse(traj[:, :3, 3], world.poses_wc[:n, :3, 3])
+        runs[name] = {"keyframes": vo.n_kf, "map_points": vo.n_mp, "ate_cm": ate["rmse"] * 100.0,
+                      "lost": sum(1 for r in vo.records if r.state != "OK"),
+                      "keyframe_frames": [r.frame_id for r in vo.records
+                                          if np.array_equal(r.T_rel, np.eye(4))]}
+        extra[name] = traj
+    key = {pair_key(*f): i for i, f in enumerate(frames)}
+    runs["ref"]["rescue_frames"] = sorted(key[k] for k in store.rescue_keys())
+    for name, vo in (("own", own), ("fed", fed)):
+        runs[name]["rescue_frames"] = vo.rescue_frames
+    fed_dep = first_departure(stats["ref"], stats["fed"], n)
+    print(json.dumps({
+        "world": f"{chip_smoke.W}x{chip_smoke.H}, {n} frames of bench.py's 200-frame world,"
+                 " frontend klt, bench cadences, drained before frame 10, CPU",
+        "first_departure_own": first_departure(stats["ref"], stats["own"], n),
+        "first_departure_fed": fed_dep,
+        "fed_frame_on_reference_state": None if fed_dep is None else klt_frame_on_reference_state(
+            ref_cfg, port_cfg, frames, fed_dep["frame"]),
+        "fed_pose_max_abs_diff": float(np.abs(extra["fed"] - extra["ref"]).max()),
+        "ref": runs["ref"], "own": runs["own"], "fed": runs["fed"],
+        "seconds": time.time() - t0,
+    }))
+
+
+def klt_frame_on_reference_state(ref_cfg, port_cfg, frames, f):
+    """The reference run again up to frame `f`, its KLT frame program's
+    inputs at `f` kept (map, track set, previous pyramid, carry, motion
+    model); then the port's frame program on those same inputs, fed the
+    reference's features. Returns both sides' packed counts and pose
+    difference: equal counts put the departure in the state before `f`."""
+    from test_torch_klt_vo import ReferenceFeatures
+
+    from vi_slam_tpu_torch.lie.se3 import SE3
+    from vi_slam_tpu_torch.slam_map.state import map_state_from_numpy
+
+    ref = ref_make_stereo_vo(ref_cfg)
+    store = ReferenceFeatures(ref)
+    fn, kept = ref._frame_klt_fn, {}
+
+    def frame(*a):
+        if int(a[10]) == f:
+            kept["args"] = jax.tree_util.tree_map(np.array, a)
+        out = fn(*a)
+        if int(a[10]) == f:
+            kept["packed"] = np.array(out[0].packed)
+        return out
+
+    ref._frame_klt_fn = frame
+    for i in range(f + 1):
+        if i == chip_smoke.N_WARM:
+            ref.flush()
+        ref.process_stereo(*frames[i], i * 0.1)
+    ref.flush()
+    a = kept["args"]
+    port = make_stereo_vo(port_cfg, device="cpu")
+    store.feed(port)
+
+    def t(x):
+        return torch.from_numpy(np.array(x))
+
+    port.map = map_state_from_numpy(dict(zip(ref.map._fields, a[1])), device="cpu")
+    port.prev_pyr = tuple(t(x) for x in a[2])
+    port.trk_xy, port.trk_mp, port.trk_level, port.trk_valid = (t(x) for x in a[3:7])
+    port.carry_dev = t(a[7])
+    port.T_dev, port.vel_dev = SE3(t(a[8].R), t(a[8].t)), SE3(t(a[9].R), t(a[9].t))
+    got = port._frame_klt(t(a[0]), f, float(a[11])).packed.numpy()
+    want = kept["packed"]
+    return {"frame": f, "ref_counts": want[24:].tolist(), "port_counts": got[24:].tolist(),
+            "pose_max_abs_diff": float(np.abs(got[:12] - want[:12]).max())}
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=100)
@@ -207,7 +315,12 @@ def main():
                          " full phase's 200-frame world")
     ap.add_argument("--loop", action="store_true",
                     help="bench.py --loop's world with a vocabulary, atlas off")
+    ap.add_argument("--klt", action="store_true",
+                    help="bench.py --frontend klt over the first --frames of its world")
     args = ap.parse_args()
+    if args.klt:
+        klt_report(args.frames)
+        return
     n = args.frames
     t0 = time.time()
     W, H = chip_smoke.W, chip_smoke.H

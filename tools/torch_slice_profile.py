@@ -15,6 +15,7 @@ keyframe-rate program (mapping pass, local BA, maintenance). Prints:
     python3 tools/torch_slice_profile.py [--frames 20] [--warm 10] [--bench-cadences]
     python3 tools/torch_slice_profile.py --reloc [--frames 200]
     python3 tools/torch_slice_profile.py --vio [--warm 30] [--frames 30]
+    python3 tools/torch_slice_profile.py --klt [--warm 10] [--frames 20]
 
 With `--vio` it runs `chip_smoke.py`'s vio phase instead
 (tools/bench_vio.py's stereo-inertial configuration and world, 200 Hz
@@ -24,6 +25,16 @@ range per stage of an inertial frame: extraction, IMU integration, the
 inertial track, keyframe creation and the segment's close, and at keyframe
 rate the mapping pass, maintenance, the inertial initialization and the
 visual-inertial BA (local and full). The output is as above.
+
+With `--klt` it runs `chip_smoke.py`'s klt phase instead (bench.py
+--frontend klt over bench.py's world): `--warm` frames unprofiled, then
+`--frames` frames under the profiler with one range per stage of a KLT
+frame: the pyramids, the LK passes (`_lk`, three a tracked frame), the two
+pose passes (`pose_optimize`), the ORB rescue's extraction and tracking,
+the keyframe branch's extraction, association and keyframe creation, and
+at keyframe rate the mapping pass, local BA and maintenance. The output
+is as above: host and device ms a frame per stage, kernels a frame and
+the idle share.
 
 With `--reloc` it runs `chip_smoke.py`'s loop phase instead (bench.py
 --loop's world and vocabulary, atlas off; the tracking fails on many of
@@ -57,6 +68,8 @@ from vi_slam_tpu_torch.utils.timing import ProgramTimer  # noqa: E402
 
 STAGES = ("_extract_pair", "_track", "_create_kf_body", "_mapping_pass", "_local_ba_program",
           "_maintenance_program")
+KLT_STAGES = ("_pyramid", "_lk", "_optimize", "_extract_pair", "_track", "_associate",
+              "_create_kf_body", "_mapping_pass", "_local_ba_program", "_maintenance_program")
 VIO_STAGES = ("_extract_pair", "_integrate_and_accum", "_track_vio", "_create_kf_body",
               "_close_segment", "_mapping_pass", "_maintenance_program", "_maybe_init_imu",
               "_vi_local_ba")
@@ -201,6 +214,44 @@ def vio_profile(n_warm: int, n_frames: int) -> None:
           f" {vo.init_stage_frames}, lost {sum(1 for r in vo.records if r.state != 'OK')}")
 
 
+def klt_profile(n_warm: int, n_frames: int) -> None:
+    """The klt phase's world and configuration, split by stage."""
+    from vi_slam_tpu_torch.optim import pose_opt
+
+    n = n_warm + n_frames
+    world = chip_smoke.full_world()
+    frames = chip_smoke.render_frames(world, n)
+    cfg = chip_smoke.klt_config()
+    warm = make_stereo_vo(cfg)
+    for i in range(n_warm):
+        warm.process_stereo(*frames[i], i * 0.1)
+    warm.flush()
+    vo = make_stereo_vo(cfg)
+    stages = tuple(s for s in KLT_STAGES if s != "_optimize")
+    instrument(vo, stages)
+    solve = pose_opt.pose_optimize
+
+    def optimize(*a, **kw):
+        with record_function("stage_optimize"):
+            return solve(*a, **kw)
+
+    pose_opt.pose_optimize = optimize
+
+    def step(i):
+        if i is None:
+            vo.flush()
+        else:
+            vo.process_stereo(*frames[i], i * 0.1)
+
+    try:
+        profiled(step, n_warm, n, "klt, bench cadences")
+    finally:
+        pose_opt.pose_optimize = solve
+    print(f"after the run: keyframes {vo.n_kf}, from the KLT keyframe branch at frames"
+          f" {vo.klt_kf_frames}, rescues at frames {vo.rescue_frames}, lost"
+          f" {sum(1 for r in vo.records if r.state != 'OK')}")
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=20)
@@ -211,11 +262,16 @@ def main():
                     help="the loop phase's run, relocalization attempts split by step")
     ap.add_argument("--vio", action="store_true",
                     help="the vio phase's stereo-inertial run, split by stage")
+    ap.add_argument("--klt", action="store_true",
+                    help="the klt phase's run (bench.py --frontend klt), split by stage")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("torch_slice_profile: needs a CUDA device")
     if args.vio:
         vio_profile(args.warm if args.warm != 10 else 30, args.frames if args.frames != 20 else 30)
+        return
+    if args.klt:
+        klt_profile(args.warm, args.frames)
         return
     if args.reloc:
         reloc_profile(args.frames if args.frames != 20 else chip_smoke.N_FULL_FRAMES)

@@ -6,7 +6,8 @@ JAX package:
   * billboard worlds (`make_trajectory`, `make_billboard_world`,
     `render_billboard_image`): grayscale stereo renderings of textured
     quads along a smooth forward motion with gentle yaw, at KITTI-like
-    scale (metres, ~10 fps);
+    scale (metres, ~10 fps), and their depth maps
+    (`render_billboard_depth`, for RGB-D);
   * oracle features (`make_landmark_world`, `flip_descriptor_bits`,
     `render_oracle_frame`): 3D landmarks with fixed random descriptors,
     projected with noise, for tests without the image frontend;
@@ -255,6 +256,63 @@ def render_billboard_image(
     return img
 
 
+def _render_pair(world, Twc, fx, fy, cx, cy, width, height, baseline):
+    return (render_billboard_image(world, Twc, fx, fy, cx, cy, width, height, baseline=0.0),
+            render_billboard_image(world, Twc, fx, fy, cx, cy, width, height,
+                                   baseline=baseline))
+
+
+def render_stereo_pairs(world: BillboardWorld, poses, fx: float, fy: float, cx: float,
+                        cy: float, width: int, height: int, baseline: float,
+                        pool=None) -> List[Tuple[np.ndarray, np.ndarray]]:
+    """The (left, right) renderings of `world` at each of `poses`, the
+    right camera `baseline` metres to the right. Given a
+    `multiprocessing` pool, its workers render the pairs (the same images,
+    each pair rendered independently)."""
+    args = [(world, T, fx, fy, cx, cy, width, height, baseline) for T in poses]
+    if pool is None:
+        return [_render_pair(*a) for a in args]
+    # one chunk pickles the world once for all its tasks
+    return pool.starmap(_render_pair, args, chunksize=max(1, len(args) // 32))
+
+
+def render_billboard_depth(
+    world: BillboardWorld,
+    Twc: np.ndarray,
+    cam_fx: float,
+    cam_fy: float,
+    cam_cx: float,
+    cam_cy: float,
+    width: int,
+    height: int,
+    far: float = 50.0,
+) -> np.ndarray:
+    """A z-buffer of the billboards seen from Twc (metres, `far` where no
+    board is): each board in front of z = 1 filled far to near as the
+    screen-aligned rectangle that `render_billboard_image` draws. The
+    depth maps of the JAX package's RGB-D test (tests/test_lifecycle.py),
+    for RGB-D ingest."""
+    Rcw = Twc[:3, :3].T
+    tcw = -Rcw @ Twc[:3, 3]
+    pc = (Rcw @ world.centers.T).T + tcw
+    z = pc[:, 2]
+    depth = np.full((height, width), far, np.float32)
+    u = cam_fx * pc[:, 0] / np.maximum(z, 1e-6) + cam_cx
+    v = cam_fy * pc[:, 1] / np.maximum(z, 1e-6) + cam_cy
+    half_w = cam_fx * world.sizes / np.maximum(z, 1e-6) * 0.5
+    half_h = cam_fy * world.sizes / np.maximum(z, 1e-6) * 0.5
+    for i in np.argsort(-z):
+        if z[i] <= 1.0:
+            continue
+        x0 = max(int(np.floor(u[i] - half_w[i])), 0)
+        x1 = min(int(np.ceil(u[i] + half_w[i])), width)
+        y0 = max(int(np.floor(v[i] - half_h[i])), 0)
+        y1 = min(int(np.ceil(v[i] + half_h[i])), height)
+        if x0 < x1 and y0 < y1:
+            depth[y0:y1, x0:x1] = z[i]
+    return depth
+
+
 def _roty(y):
     c, s = np.cos(y), np.sin(y)
     R = np.zeros((*np.shape(y), 3, 3))
@@ -394,10 +452,12 @@ def make_billboard_inertial_sequence(
     closed_loop: bool = False,
     closed_loop_period_frames: int = 0,
     speed: float = 1.2,
+    pool=None,
 ) -> Tuple[InertialWorld, BillboardWorld, List]:
     """The image sequence along the inertial world's trajectory (the world
     of `bench.py --loop` with closed_loop=True, and of
-    `tools/bench_vio.py`): textured billboards rendered as stereo pairs.
+    `tools/bench_vio.py`): textured billboards rendered as stereo pairs
+    (in `pool`'s workers when given, see `render_stereo_pairs`).
     Returns (inertial world, billboard world, [(imgL, imgR), ...])."""
     iw = make_inertial_world(
         n_frames=n_frames, fps=fps, n_landmarks=n_landmarks, seed=seed,
@@ -420,12 +480,8 @@ def make_billboard_inertial_sequence(
         poses_wc=poses,
         textures=rng.uniform(30.0, 255.0, (n_boards, G, G)).astype(np.float32),
     )
-    frames = []
-    for i in range(n_frames):
-        imgL = render_billboard_image(bw, poses[i], fx, fy, cx, cy, width, height, baseline=0.0)
-        imgR = render_billboard_image(bw, poses[i], fx, fy, cx, cy, width, height,
-                                      baseline=bf / fx)
-        frames.append((imgL, imgR))
+    frames = render_stereo_pairs(bw, poses[:n_frames], fx, fy, cx, cy, width, height, bf / fx,
+                                 pool=pool)
     return iw, bw, frames
 
 

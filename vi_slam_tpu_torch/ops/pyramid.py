@@ -8,6 +8,9 @@ matrices in numpy (float64, then float32) and applies them as two float32
 matrix products, so it does not depend on how `interpolate` defines
 antialiasing. The result differs from XLA's CPU result by up to about
 0.01 grey levels at 313x1034 (both are f32 sums in different orders).
+
+The LK tracker's pyramid (`build_halfsample_pyramid`) halves each level by
+a 2x2 mean instead.
 """
 
 from __future__ import annotations
@@ -102,3 +105,20 @@ def gaussian_blur(image: torch.Tensor, ksize: int = 7, sigma: float = 2.0) -> to
     y = sum(float(k[i]) * x[i : i + h, :] for i in range(ksize))
     x = torch.cat([y[:, :1].expand(h, pad), y, y[:, -1:].expand(h, pad)], dim=1)
     return sum(float(k[i]) * x[:, i : i + w] for i in range(ksize))
+
+
+def halfsample(image: torch.Tensor) -> torch.Tensor:
+    """2x2 mean with an odd last row and column cropped: vilib's
+    half-sampling, the LK tracker's pyramid step. On integer-valued input
+    every level is dyadic, so the result is exact."""
+    h2, w2 = image.shape[0] // 2, image.shape[1] // 2
+    x = image[: h2 * 2, : w2 * 2]
+    return x.reshape(h2, 2, w2, 2).mean(dim=(1, 3))
+
+
+def build_halfsample_pyramid(image: torch.Tensor, n_levels: int) -> List[torch.Tensor]:
+    """(H, W) float32 -> `n_levels` images, each half the one before."""
+    levels = [image]
+    for _ in range(1, n_levels):
+        levels.append(halfsample(levels[-1]))
+    return levels

@@ -10,7 +10,10 @@ vector, copied to pinned host memory without blocking. The host keeps a
 so its bookkeeping (records, states, keyframe counts) happens on the same
 frames as in the reference. `process_oracle` is the synchronous path for
 given keypoints (tests without the image frontend); it decides keyframes
-on the host.
+on the host, as `process_rgbd` does for an RGB-D frame (one-image
+extraction, each keypoint's depth turned into a virtual right
+coordinate). The KLT frontend is the subclass `pipeline/klt_vo.py::
+KltStereoVO`, which `make_stereo_vo` picks by `cfg.tracker.frontend`.
 
 At keyframe rate the host runs, on the reference's cadences, the mapping
 pass (fuse with covisible neighbours, stereo triangulation against the
@@ -115,12 +118,15 @@ class FrameJob:
     timestamp: float
     ref_kf: int  # host reference keyframe at dispatch
     bundle: Optional[TrackBundle]
-    feats: Features
-    uright: torch.Tensor
-    depth: torch.Tensor
+    feats: Optional[Features]  # None for a KLT frame, which extracts none
+    uright: Optional[torch.Tensor]
+    depth: Optional[torch.Tensor]
     fused: bool = False  # the keyframe decision ran inside the frame program
     packed_host: Optional[torch.Tensor] = None  # pinned copy of bundle.packed
     copied: Optional[torch.cuda.Event] = None  # set when packed_host is filled
+    # the uploaded (2, H, W) uint8 pair of a KLT frame, from which a failed
+    # frame extracts its features for the relocalization ladder
+    imgs: Optional[torch.Tensor] = None
 
 
 @dataclass
@@ -537,6 +543,42 @@ class StereoVO:
         return st if st is not None else TrackStats(
             n_kfs=self.n_kf, n_mps=self.n_mp, state=self.state
         )
+
+    def process_rgbd(self, img, depth_img, timestamp: float) -> TrackStats:
+        """Track one RGB-D frame (a grey image and a depth map in metres,
+        both (H, W)) synchronously: one-image ORB extraction, each
+        keypoint's depth looked up at its truncated pixel, and u_right =
+        u - bf / z where z > 0, so that the stereo tracking applies
+        unchanged; the keyframe decision runs on the host."""
+        self._pre_frame(timestamp)
+        feats, uright, depth = self._rgbd_features(self._upload_f32(img),
+                                                   self._upload_f32(depth_img))
+        bundle = None
+        if self.state != NOT_INITIALIZED:
+            bundle = self._track(self.map, self._slot(max(self.ref_kf, 0)), feats, uright, depth,
+                                 self.T_dev, self.vel_dev)
+        return self._track_entry(feats, uright, depth, timestamp, bundle)
+
+    def _rgbd_features(self, img: torch.Tensor, depth_img: torch.Tensor):
+        """(features, u_right, depth) of an RGB-D frame; -1 where a
+        keypoint has no positive depth."""
+        feats = self.extractor(img)
+        H, W = depth_img.shape
+        u = torch.clamp(feats.xy[:, 0].to(torch.int32), 0, W - 1).long()
+        v = torch.clamp(feats.xy[:, 1].to(torch.int32), 0, H - 1).long()
+        z = depth_img[v, u]
+        ok = feats.valid & (z > 0)
+        minus1 = torch.full_like(z, -1.0)
+        depth = torch.where(ok, z, minus1)
+        uright = torch.where(ok, feats.xy[:, 0] - self.cam.bf / torch.clamp(z, min=1e-6), minus1)
+        return feats, uright, depth
+
+    def _upload_f32(self, img) -> torch.Tensor:
+        """One float32 (H, W) upload."""
+        host = torch.from_numpy(np.ascontiguousarray(img, dtype=np.float32))
+        if self.device.type == "cuda":
+            return host.pin_memory().to(self.device, non_blocking=True)
+        return host
 
     def process_oracle(self, xy, uright, depth, desc, level, timestamp: float) -> TrackStats:
         """Track one frame of given keypoints (pixels (V, 2), u_right and
@@ -1167,10 +1209,8 @@ class StereoVO:
 
 def make_stereo_vo(cfg: SystemConfig, vocab: Optional[voc.Vocabulary] = None,
                    device="cuda") -> StereoVO:
-    """Entry point of the tracking loop; runs on CUDA unless the caller
-    passes device="cpu". A vocabulary turns on loop closing and
-    relocalization. The ORB frontend only: the KLT frontend comes in a
-    later slice."""
-    if cfg.tracker.frontend != "orb":
-        raise NotImplementedError(f"frontend {cfg.tracker.frontend!r} is not ported yet")
-    return StereoVO(cfg, device=device, vocab=vocab)
+    """Entry point of the tracking loop: `pipeline/klt_vo.py::make_stereo_vo`,
+    which picks the frontend by `cfg.tracker.frontend`."""
+    from vi_slam_tpu_torch.pipeline import klt_vo
+
+    return klt_vo.make_stereo_vo(cfg, vocab=vocab, device=device)

@@ -659,8 +659,10 @@ def make_stereo_inertial_vo(cfg: SystemConfig, vocab: Optional[voc.Vocabulary] =
                             device="cuda") -> StereoInertialVO:
     """Entry point of the stereo-inertial pipeline; runs on CUDA unless the
     caller passes device="cpu". A vocabulary turns on loop closing,
-    relocalization and the atlas. The ORB frontend only; the fixed-lag
+    relocalization and the atlas. The ORB frontend only, as in the reference
+    (its StereoInertialVO is a StereoVO, not a KltStereoVO); the fixed-lag
     smoother raises NotImplementedError."""
-    if cfg.tracker.frontend != "orb":
-        raise NotImplementedError(f"frontend {cfg.tracker.frontend!r} is not ported yet")
+    if cfg.tracker.frontend == "klt":
+        raise NotImplementedError("the stereo-inertial pipeline has the ORB frontend only:"
+                                  " the reference has no KLT stereo-inertial pipeline")
     return StereoInertialVO(cfg, device=device, vocab=vocab)

@@ -18,7 +18,7 @@ from __future__ import annotations
 import torch
 
 
-def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
+def fma_f32(a: torch.Tensor, b, c) -> torch.Tensor:
     """a * b + c in float32 with one rounding, through float64."""
     b = b.double() if isinstance(b, torch.Tensor) else b
     c = c.double() if isinstance(c, torch.Tensor) else c
@@ -36,17 +36,23 @@ def log_f32(x: torch.Tensor) -> torch.Tensor:
     x = (m - 1.0) + torch.where(small, m, torch.zeros_like(m))
     x2 = x * x
     x3 = x2 * x
-    a = _fma(x, 0.07037683576345444, -0.11514610052108765)
-    b = _fma(x, -0.12420140951871872, 0.14249323308467865)
-    c = _fma(x, 0.2000071406364441, -0.24999994039535522)
-    a = _fma(a, x, 0.11676998436450958)
-    b = _fma(b, x, -0.16668057441711426)
-    c = _fma(c, x, 0.3333333134651184)
-    y = _fma(a, x3, b)
-    y = _fma(y, x3, c)
-    y = _fma(y, x3, e * -0.00021219444170128554)
-    r = _fma(x2, -0.5, x) + y
-    return _fma(e, 0.693359375, r)
+    a = fma_f32(x, 0.07037683576345444, -0.11514610052108765)
+    b = fma_f32(x, -0.12420140951871872, 0.14249323308467865)
+    c = fma_f32(x, 0.2000071406364441, -0.24999994039535522)
+    a = fma_f32(a, x, 0.11676998436450958)
+    b = fma_f32(b, x, -0.16668057441711426)
+    c = fma_f32(c, x, 0.3333333134651184)
+    y = fma_f32(a, x3, b)
+    y = fma_f32(y, x3, c)
+    y = fma_f32(y, x3, e * -0.00021219444170128554)
+    r = fma_f32(x2, -0.5, x) + y
+    return fma_f32(e, 0.693359375, r)
+
+
+def sqrt_f32(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float32 square root (taken in float64: torch's
+    float32 sqrt on the CPU is not always correctly rounded)."""
+    return torch.sqrt(x.double()).float()
 
 
 def norm3_f32(v: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
@@ -55,7 +61,7 @@ def norm3_f32(v: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
     square root correctly rounded (taken in float64: torch's float32 sqrt
     on the CPU is not always)."""
     x, y, z = v[..., 0], v[..., 1], v[..., 2]
-    n = torch.sqrt(_fma(z, z, _fma(y, y, x * x)).double()).float()
+    n = sqrt_f32(fma_f32(z, z, fma_f32(y, y, x * x)))
     return n[..., None] if keepdim else n
 
 
@@ -83,7 +89,7 @@ def lu3_pivots(A: torch.Tensor) -> torch.Tensor:
     a22 = torch.where(swap, a[..., 1, 2], a[..., 2, 2])
     l21 = b21 * torch.where(u11 != 0, 1.0 / u11, torch.ones_like(u11))
     u12 = a12 - l10 * u02
-    u22 = a22 - _fma(l21, u12, l20 * u02)
+    u22 = a22 - fma_f32(l21, u12, l20 * u02)
     return torch.stack([piv0, u11, u22], dim=-1)
 
 
