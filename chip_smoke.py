@@ -10,10 +10,13 @@ line a run (the port's ATE spread).
 
 Needs one CUDA card, `nvcc` and `nvidia-smi`; imports nothing of JAX or of
 the JAX package. The frames are rendered in a pool of worker processes
-(`multiprocessing`, spawned, stopped on the way out). It runs eleven
+(`multiprocessing`, spawned, stopped on the way out). It runs twelve
 phases in order and prints one line per phase with its seconds, flushed
-as the phase ends (and a `render` line for bench.py's 200 frames, which
-the full, klt and rgbd phases share):
+as the phase ends (and a `render` line for the first 120 frames of
+bench.py's 200-frame world, which the full, klt and rgbd phases share).
+The vio-smoother phase runs in a worker process of its own, which warms
+up its first inertial initialization and smoother step on the card while
+the first phases run:
 
   device  the card's name and `nvidia-smi` name and power limit;
   build   `nvcc` of vi_slam_tpu_torch/csrc/*.cu into the ignored
@@ -32,7 +35,8 @@ the full, klt and rgbd phases share):
           this image needs, beside the earlier per-level kernel's times
           and ptxas's registers and shared memory;
   slice   the tracking frame loop (`make_stereo_vo` ->
-          `process_stereo`) over 50 rendered KITTI-00-sized frames on
+          `process_stereo`) over the first 30 frames of a rendered
+          50-frame KITTI-00-sized world on
           "cuda", with the keyframe-rate programs off, after a 10-frame
           warm pass: steady frames/s, ATE, lost frames, keyframes, map
           points and the kernel's launch count, which must be 2 per frame
@@ -40,7 +44,8 @@ the full, klt and rgbd phases share):
           20 %) of the JAX reference's ATE on the same frames;
   full    bench.py's configuration end to end: the same loop with the
           mapping pass every 2nd keyframe, local BA every 3rd and
-          maintenance every 8th, over the 200 frames of bench.py's world,
+          maintenance every 8th, over the first 120 frames of bench.py's
+          200-frame world,
           after the same warm pass. It fails on a lost frame, a trajectory
           that is not finite, an ATE further than max(1 cm, 20 %) from the
           JAX reference's ATE on the same frames with the same drain
@@ -108,6 +113,18 @@ the full, klt and rgbd phases share):
           initialization stage, the gravity's angle to the truth and the
           biases, keyframes, and the host ms of each program, beside the
           reference's.
+  vio-smoother
+          tools/bench_vio.py --smoother: the vio phase's configuration with
+          the fixed-lag smoother on (`use_smoother=True`, a 6-slot window,
+          96 anchors a slot, 2 iterations a frame) over the vio phase's
+          world and frames (rendered once for both), run in a worker
+          process on the card while the vio phase runs. It fails on the vio
+          phase's gates against the reference's figures with the smoother
+          on, on smoother steps other than one per inertial track or none,
+          and on a window that never slid. It prints the vio phase's
+          figures, the smoother's steps and host ms a step, and its slides
+          (each one `eigh`, a wait for the host on the card) with their
+          host ms.
   klt     bench.py --frontend klt: bench.py's configuration with the KLT
           track-then-redetect frontend over the first 60 frames of
           bench.py's world, drained before frame 10. It fails on a lost
@@ -134,7 +151,7 @@ the full, klt and rgbd phases share):
 Any failure raises and the script exits non-zero with the traceback. On
 success it prints the `nvidia-smi` line, a JSON line of per-kernel
 measurements ("launches" is the full phase's count, "launches_by_phase"
-adds the klt and rgbd phases'; "ms", "plain_ms" and "bound_ms" are device
+adds the vio-smoother, klt and rgbd phases'; "ms", "plain_ms" and "bound_ms" are device
 times for the 8-level left pyramid of frame 0), and last a JSON line
 {"ok": true, "device": {...}}.
 """
@@ -151,23 +168,26 @@ import time
 
 import numpy as np
 
-# The JAX reference's ATE on the slice world, on the host CPU with x64
-# off: `python tools/slice_reference_ate.py --frames 50 --flush-at 10`, as
-# the smoke drains the pipeline, with the JAX package of commit 22ba74e:
-# 1.4925058203719144 cm with 0 lost frames. An accuracy figure, not a speed.
-REF_ATE_CM = 1.4925058203719144
-REF_ATE_COMMIT = "22ba74e49f1b6ba06912721b09bd55dfa792f2fd"
+# The JAX reference's ATE on the slice phase's frames (the first 30 of the
+# 50-frame slice world), on the host CPU with x64 off: `python
+# tools/slice_reference_ate.py --frames 30 --world-frames 50 --flush-at
+# 10`, as the smoke drains the pipeline, with the JAX package of commit
+# 319d32d: 0.8284291253083997 cm with 0 lost frames and 29 keyframes. An
+# accuracy figure, not a speed.
+REF_ATE_CM = 0.8284291253083997
+REF_ATE_COMMIT = "319d32d38d3f5e78a3dc7f1895ed0a19d2b897a9"
 
-# The same for the full phase: `python tools/slice_reference_ate.py
-# --bench-cadences --frames 200 --flush-at 10` at commit 917b768 (an
+# The same for the full phase, the first 120 frames of bench.py's
+# 200-frame world: `python tools/slice_reference_ate.py --bench-cadences
+# --frames 120 --world-frames 200 --flush-at 10` at commit 319d32d (an
 # accuracy figure, not a speed). The pipeline is drained before frame 10,
 # as run_loop drains it before its steady clock (and bench.py after its
 # warm-up): the drain changes which results the lagged host decisions see,
 # so it is part of the configuration. The reference culls no keyframe in
-# these 200 frames.
-REF_FULL = dict(ate_cm=7.529685106552717, lost=0, keyframes=173, map_points=38112,
+# these frames.
+REF_FULL = dict(ate_cm=6.866469075143339, lost=0, keyframes=99, map_points=24827,
                 culled_keyframes=0)
-REF_FULL_COMMIT = "917b76847761432cf82235f5d92bce1e6e58c6d1"
+REF_FULL_COMMIT = "319d32d38d3f5e78a3dc7f1895ed0a19d2b897a9"
 
 # The same for the loop phase, atlas on as bench.py runs it: `python
 # tools/slice_reference_ate.py --loop --frames 200 --flush-at 10` with the
@@ -198,6 +218,21 @@ REF_VIO = dict(ate_cm=0.4789413901156036, lost=0, keyframes=17, imu_ready=True, 
                bias_gyro_true=[0.002, -0.001, 0.0015], bias_acc_true=[0.05, -0.03, 0.02],
                programs=dict(integrate=59, track_vio=38, inertial_init=2, vi_local_ba=6,
                              full_inertial_ba=2, mapping=8, maintenance=1))
+# The same for the vio-smoother phase: `python tools/slice_reference_ate.py
+# --vio --smoother --frames 60 --flush-at 8` at commit 319d32d (an accuracy
+# figure, not a speed): tools/bench_vio.py --smoother's configuration over
+# the vio phase's world, drained before frame 8; "smoother" counts its
+# steps (one per inertial track), "smoother_slide" the steps that found
+# the window full and marginalized its oldest state.
+REF_VIO_SMOOTHER = dict(
+    ate_cm=1.0161164893288437, lost=0, keyframes=16, imu_ready=True, init_stage=2,
+    init_stage_frames=[21, 52], gravity_angle_deg=0.4118864732497005,
+    bias_gyro=[0.0018093077233061194, -0.0017238747095689178, 0.0025783346500247717],
+    bias_acc=[-0.006343938875943422, -0.03270953521132469, -0.0103732505813241],
+    bias_gyro_true=[0.002, -0.001, 0.0015], bias_acc_true=[0.05, -0.03, 0.02],
+    programs=dict(integrate=59, track_vio=38, inertial_init=2, vi_local_ba=5, full_inertial_ba=2,
+                  smoother=38, smoother_slide=28, mapping=7, maintenance=1))
+REF_VIO_SMOOTHER_COMMIT = "319d32d38d3f5e78a3dc7f1895ed0a19d2b897a9"
 ATLAS_PROGRAMS = ("fork", "merge_detect", "merge")
 LOOP_PROGRAMS = ("bow_add", "detect", "verify", "correct", "gba", "reloc") + ATLAS_PROGRAMS
 
@@ -247,8 +282,10 @@ W, H = 1241, 376
 FX = FY = 718.856
 CX, CY = 607.1928, 185.2157
 BF = 386.1448
-N_FRAMES = 50
-N_FULL_FRAMES = 200  # bench.py's --frames default
+N_FRAMES = 30  # the slice phase's frames (cut from 50 for the smoke's time)
+SLICE_WORLD_FRAMES = 50  # of the slice world, whose boards depend on its length
+N_FULL_FRAMES = 200  # bench.py's --frames default: its world, and the loop world
+FULL_FRAMES = 120  # the full phase's frames of bench.py's world (cut from 200)
 N_WARM = 10
 NEVER = 10 ** 9  # a keyframe cadence no run reaches
 VIO_FRAMES = 60  # tools/bench_vio.py's --frames default
@@ -618,9 +655,10 @@ def full_world():
 
 
 def phase_full(world, frames):
-    """bench.py's configuration end to end over bench.py's 200-frame world
-    (`frames`: its rendered stereo pairs)."""
-    vo, full = run_loop(slice_config(bench_cadences=True), world, N_FULL_FRAMES, frames=frames)
+    """bench.py's configuration end to end over the first FULL_FRAMES frames
+    of bench.py's 200-frame world (`frames`: its rendered stereo pairs)."""
+    vo, full = run_loop(slice_config(bench_cadences=True), world, FULL_FRAMES,
+                        frames=frames[:FULL_FRAMES])
     tol_cm = max(1.0, 0.2 * REF_FULL["ate_cm"])
     if abs(full["ate_cm"] - REF_FULL["ate_cm"]) > tol_cm:
         raise AssertionError(
@@ -721,8 +759,9 @@ def loop_world_frames(pool=None):
     return iw.world, frames
 
 
-def vio_config():
-    """tools/bench_vio.py's configuration (smoother off), unreduced."""
+def vio_config(smoother: bool = False):
+    """tools/bench_vio.py's configuration, unreduced (`smoother`: its
+    --smoother, the fixed-lag smoother on)."""
     from vi_slam_tpu_torch.utils.config import (
         BAConfig, CameraConfig, ExtractorConfig, IMUConfig, MapConfig, SystemConfig,
         TrackerConfig,
@@ -733,7 +772,7 @@ def vio_config():
                             th_depth=35.0, fps=10.0),
         extractor=ExtractorConfig(n_features=2000),
         ba=BAConfig(max_local_kfs=6, max_local_points=2048, local_ba_iters=4,
-                    inertial_window=8, mapping_fuse_window=1),
+                    inertial_window=8, mapping_fuse_window=1, use_smoother=smoother),
         map=MapConfig(max_keyframes=256, max_points=65536, max_obs_per_point=8),
         imu=IMUConfig(freq=200.0),
         tracker=TrackerConfig(max_frames_between_kf=4, maintenance_every=8, local_ba_every=2,
@@ -741,21 +780,28 @@ def vio_config():
     )
 
 
-def phase_vio(pool=None):
-    """tools/bench_vio.py's configuration end to end: the stereo-inertial
-    pipeline over its 60-frame world with the 200 Hz IMU stream, after a
+def vio_world(pool=None):
+    """tools/bench_vio.py's world: the 60-frame billboard sequence with its
+    200 Hz IMU stream, (InertialWorld, stereo pairs)."""
+    from vi_slam_tpu_torch.io import synthetic
+
+    iw, _, frames = synthetic.make_billboard_inertial_sequence(
+        VIO_FRAMES, FX, FY, CX, CY, W, H, BF, n_landmarks=2000, seed=5, pool=pool)
+    return iw, frames
+
+
+def run_vio(cfg, ref, iw, frames):
+    """The stereo-inertial pipeline over tools/bench_vio.py's world, after a
     warm pass over the first VIO_WARM frames, the pipeline drained before
-    frame VIO_WARM as bench_vio.py drains it."""
+    frame VIO_WARM as bench_vio.py drains it, held to the reference's
+    figures `ref`; with the smoother on, its steps (one per inertial
+    track) and slides too. Raises on a failed gate; returns the run's
+    numbers."""
     import torch
-    from vi_slam_tpu_torch.io import evaluation, synthetic
+    from vi_slam_tpu_torch.io import evaluation
     from vi_slam_tpu_torch.ops import fast_kernel
     from vi_slam_tpu_torch.pipeline.vio import INERTIAL_PROGRAMS, make_stereo_inertial_vo
 
-    t0 = time.perf_counter()
-    iw, _, frames = synthetic.make_billboard_inertial_sequence(
-        VIO_FRAMES, FX, FY, CX, CY, W, H, BF, n_landmarks=2000, seed=5, pool=pool)
-    prep_s = time.perf_counter() - t0
-    cfg = vio_config()
     fast_kernel.reset_launches()
     warm = make_stereo_inertial_vo(cfg)
     for i in range(VIO_WARM):
@@ -779,7 +825,6 @@ def phase_vio(pool=None):
     est = vo.trajectory_wc()
     if not np.all(np.isfinite(est)) or est.shape != (VIO_FRAMES, 4, 4):
         raise AssertionError(f"trajectory not finite or of shape {est.shape}")
-    ref = REF_VIO
     lost = sum(1 for r in vo.records if r.state != "OK")
     if ref["lost"] == 0 and lost > 0:
         raise AssertionError(f"{lost} frames lost where the reference lost none")
@@ -797,11 +842,17 @@ def phase_vio(pool=None):
     if idle:
         raise AssertionError(f"programs that ran no time where the reference ran them: {idle}"
                              f" (port {runs}, reference {ref['programs']})")
+    if cfg.ba.use_smoother:
+        if runs["smoother"] <= 0 or runs["smoother"] != runs["track_vio"]:
+            raise AssertionError(f"{runs['smoother']} smoother steps for {runs['track_vio']}"
+                                 " inertial tracks (one each expected)")
+        if runs["smoother_slide"] <= 0:
+            raise AssertionError("the smoother's window never slid (no marginalization)")
     g = vo.g_w_dev.cpu().numpy().astype(np.float64)
     cos = g @ iw.gravity_w / max(np.linalg.norm(g) * np.linalg.norm(iw.gravity_w), 1e-12)
     device = vo.timer.device_ms()
     return dict(
-        prep_s=prep_s, steady_fps=(VIO_FRAMES - VIO_WARM) / (t_end - t_steady), ate_cm=ate_cm,
+        steady_fps=(VIO_FRAMES - VIO_WARM) / (t_end - t_steady), ate_cm=ate_cm,
         lost=lost, keyframes=vo.n_kf, launches=launches, frames=frames_done, runs=runs,
         host_ms={k: vo.program_host_s[k] * 1e3 for k in programs},
         device_ms={k: device.get(k) for k in programs},
@@ -809,6 +860,35 @@ def phase_vio(pool=None):
         gravity_deg=float(np.degrees(np.arccos(np.clip(cos, -1.0, 1.0)))),
         bg=vo.bg_dev.cpu().numpy(), ba=vo.ba_dev.cpu().numpy(),
     )
+
+
+def vio_smoother_run(iw, frames):
+    """The vio-smoother phase: tools/bench_vio.py --smoother's
+    configuration over the vio phase's world and frames, in a worker
+    process on the card (the kernel library the parent built) while the
+    parent runs the vio phase. Raises as `run_vio` does."""
+    from vi_slam_tpu_torch.kernels import build as kbuild
+
+    kbuild.load_library()
+    t0 = time.perf_counter()
+    r = run_vio(vio_config(smoother=True), REF_VIO_SMOOTHER, iw, frames)
+    r["seconds"] = time.perf_counter() - t0
+    return r
+
+
+def phase_vio(pool, vio_pool):
+    """tools/bench_vio.py's configuration end to end: the stereo-inertial
+    pipeline over its 60-frame world with the 200 Hz IMU stream, the
+    smoother off. The world is rendered once (in `pool`); the vio-smoother
+    phase's run on the same world and frames goes to `vio_pool`'s worker
+    before this phase's own run starts, and is returned pending."""
+    t0 = time.perf_counter()
+    iw, frames = vio_world(pool)
+    prep_s = time.perf_counter() - t0
+    pending = vio_pool.apply_async(vio_smoother_run, (iw, frames))
+    r = run_vio(vio_config(), REF_VIO, iw, frames)
+    r["prep_s"] = prep_s
+    return r, pending
 
 
 def train_loop_vocabulary(cfg, frames):
@@ -1105,7 +1185,7 @@ def ate_runs(seeds, flush_at, klt: bool = False) -> None:
     kbuild.load_library()
     world = full_world()
     cfg, n = (klt_config(), KLT_FRAMES) if klt else (slice_config(bench_cadences=True),
-                                                       N_FULL_FRAMES)
+                                                       FULL_FRAMES)
     frames = render_frames(world, n)
     for seed in [None] + list(seeds):
         vo, r = run_loop(cfg, world, n, perturb=seed, flush_at=flush_at, frames=frames,
@@ -1143,17 +1223,46 @@ def main(argv) -> int:
     if args.ate:
         ate_runs(args.perturb, None if args.flush_at < 0 else args.flush_at, klt=args.klt)
         return 0
-    # the frames of every phase are rendered in worker processes; the pool
-    # is stopped on the way out, whatever happens
-    pool = multiprocessing.get_context("spawn").Pool(min(8, os.cpu_count() or 1))
+    # the frames of every phase are rendered in worker processes, and the
+    # vio-smoother phase runs in a worker of its own, warmed up from the
+    # start; both pools are stopped on the way out, whatever happens
+    ctx = multiprocessing.get_context("spawn")
+    pool = ctx.Pool(min(8, os.cpu_count() or 1))
+    vio_pool = ctx.Pool(1, initializer=warm_vio_worker)
     try:
-        return check(pool)
+        return check(pool, vio_pool)
     finally:
-        pool.terminate()
-        pool.join()
+        for p in (pool, vio_pool):
+            p.terminate()
+            p.join()
 
 
-def check(pool) -> int:
+def warm_vio_worker() -> None:
+    """The vio-smoother phase's worker at its start: a process's first
+    inertial initialization on the card sets up forward-mode
+    differentiation and the card's linear-algebra libraries, which takes
+    seconds (PERF.md, PR 11); an initialization and a smoother step on a
+    small window are run here, while the parent runs the first phases."""
+    import torch
+    from vi_slam_tpu_torch.cameras.base import CameraParams
+    from vi_slam_tpu_torch.imu import preintegration as pre
+    from vi_slam_tpu_torch.optim import inertial_init, smoother
+
+    torch.set_num_threads(1)
+    dev = torch.device("cuda")
+    K = 4
+    inertial_init.inertial_init(
+        torch.eye(3, device=dev).expand(K, 3, 3), torch.zeros((K, 3), device=dev),
+        pre.identity_preintegrated((K - 1,), device=dev),
+        torch.ones((K - 1,), dtype=torch.bool, device=dev), optimize_scale=False)
+    cam = CameraParams.make(FX, FY, CX, CY, bf=BF, device=dev)
+    win = smoother.allocate_window(3, 4, device=dev)
+    win = smoother.marginalize_oldest(cam, win, torch.zeros(3, device=dev), 1.0, 1.0)
+    smoother.optimize_window(cam, win, torch.zeros(3, device=dev), 1.0, 1.0, iters=1)
+    torch.cuda.synchronize()
+
+
+def check(pool, vio_pool) -> int:
     """The phases in order; any failure raises."""
     import torch
     from vi_slam_tpu_torch.io import synthetic
@@ -1177,7 +1286,8 @@ def check(pool) -> int:
     ptxas = ptxas_usage(built.log)
     log_phase("build", t0, f"| nvcc {built.seconds:.2f} s -> {built.path.name} | {ptxas}")
 
-    world = synthetic.make_billboard_world(n_frames=N_FRAMES, n_boards=4000, seed=11, speed=1.0)
+    world = synthetic.make_billboard_world(n_frames=SLICE_WORLD_FRAMES, n_boards=4000, seed=11,
+                                           speed=1.0)
     cfg = slice_config()
 
     t0 = time.perf_counter()
@@ -1203,8 +1313,9 @@ def check(pool) -> int:
 
     t0 = time.perf_counter()
     bench_world = full_world()
-    bench_frames = render_frames(bench_world, N_FULL_FRAMES, pool)
-    log_phase("render", t0, f"| bench.py's world, {N_FULL_FRAMES} stereo pairs at {W}x{H}")
+    bench_frames = render_frames(bench_world, FULL_FRAMES, pool)
+    log_phase("render", t0, f"| bench.py's world, the first {FULL_FRAMES} of its"
+              f" {N_FULL_FRAMES} stereo pairs at {W}x{H}")
 
     t0 = time.perf_counter()
     full = phase_full(bench_world, bench_frames)
@@ -1216,7 +1327,7 @@ def check(pool) -> int:
               f" (all {full['all_fps']:.3f}) | ATE {full['ate_cm']:.4f} cm (reference"
               f" {REF_FULL['ate_cm']:.4f} cm at {REF_FULL_COMMIT[:7]}, tolerance"
               f" {max(1.0, 0.2 * REF_FULL['ate_cm']):.4f} cm) | lost {full['lost']}"
-              f" of {N_FULL_FRAMES} | keyframes {full['keyframes']} (reference"
+              f" of {FULL_FRAMES} | keyframes {full['keyframes']} (reference"
               f" {REF_FULL['keyframes']}) | map points {full['map_points']} (reference"
               f" {REF_FULL['map_points']}) | culled keyframes {full['culled_keyframes']}"
               f" (reference {REF_FULL['culled_keyframes']}) | runs: mapping"
@@ -1288,30 +1399,40 @@ def check(pool) -> int:
               f" {ref['programs']}) | fast_resp_pref launches {ri['launches']} for"
               f" {ri['frames']} frames")
     t0 = time.perf_counter()
-    vi = phase_vio(pool)
-    ref = REF_VIO
+    vi, vs_pending = phase_vio(pool, vio_pool)
 
-    def vec(a):
-        return "[" + ", ".join(f"{x:.6f}" for x in a) + "]"
+    def vio_line(r, ref):
+        vec = lambda a: "[" + ", ".join(f"{x:.6f}" for x in a) + "]"
+        prog = ", ".join(
+            f"{k} {r['runs'][k]} runs (reference {ref['programs'].get(k, 0)}) host"
+            f" {r['host_ms'][k]:.1f} ms ({r['host_ms'][k] / max(r['runs'][k], 1):.2f} ms a run)"
+            for k in r["runs"])
+        return (f"steady {r['steady_fps']:.3f} frames/s | ATE {r['ate_cm']:.4f} cm (reference"
+                f" {ref['ate_cm']:.4f} cm, tolerance {max(1.0, 0.2 * ref['ate_cm']):.4f} cm)"
+                f" | lost {r['lost']} (reference {ref['lost']}) | keyframes {r['keyframes']}"
+                f" (reference {ref['keyframes']}) | init stage {r['init_stage']} at frames"
+                f" {r['init_stage_frames']} (reference {ref['init_stage']} at"
+                f" {ref['init_stage_frames']}) | gravity {r['gravity_deg']:.4f} deg from the"
+                f" truth (reference {ref['gravity_angle_deg']:.4f}) | gyro bias {vec(r['bg'])}"
+                f" (reference {vec(ref['bias_gyro'])}, truth {vec(ref['bias_gyro_true'])})"
+                f" | accel bias {vec(r['ba'])} (reference {vec(ref['bias_acc'])}, truth"
+                f" {vec(ref['bias_acc_true'])}) | {prog} | fast_resp_pref launches"
+                f" {r['launches']} for {r['frames']} frames")
 
-    prog = ", ".join(
-        f"{k} {vi['runs'][k]} runs (reference {ref['programs'].get(k, 0)}) host"
-        f" {vi['host_ms'][k]:.1f} ms ({vi['host_ms'][k] / max(vi['runs'][k], 1):.2f} ms a run)"
-        for k in vi["runs"])
     log_phase("vio", t0,
               f"| tools/bench_vio.py's configuration, {VIO_FRAMES} frames, 200 Hz IMU | world"
-              f" {vi['prep_s']:.1f} s | steady {vi['steady_fps']:.3f} frames/s | ATE"
-              f" {vi['ate_cm']:.4f} cm (reference {ref['ate_cm']:.4f} cm, tolerance"
-              f" {max(1.0, 0.2 * ref['ate_cm']):.4f} cm) | lost {vi['lost']} (reference"
-              f" {ref['lost']}) | keyframes {vi['keyframes']} (reference {ref['keyframes']})"
-              f" | init stage {vi['init_stage']} at frames {vi['init_stage_frames']} (reference"
-              f" {ref['init_stage']} at {ref['init_stage_frames']}) | gravity"
-              f" {vi['gravity_deg']:.4f} deg from the truth (reference"
-              f" {ref['gravity_angle_deg']:.4f}) | gyro bias {vec(vi['bg'])} (reference"
-              f" {vec(ref['bias_gyro'])}, truth {vec(ref['bias_gyro_true'])}) | accel bias"
-              f" {vec(vi['ba'])} (reference {vec(ref['bias_acc'])}, truth"
-              f" {vec(ref['bias_acc_true'])}) | {prog} | fast_resp_pref launches"
-              f" {vi['launches']} for {vi['frames']} frames")
+              f" {vi['prep_s']:.1f} s | {vio_line(vi, REF_VIO)}")
+    t0 = time.perf_counter()
+    vs = vs_pending.get(timeout=900)
+    runs, host = vs["runs"], vs["host_ms"]
+    log_phase("vio-smoother", t0,
+              f"(the wait after the vio phase) | tools/bench_vio.py --smoother, {VIO_FRAMES}"
+              f" frames, in a worker process beside the vio phase: {vs['seconds']:.2f} s"
+              f" | smoother steps {runs['smoother']} for {runs['track_vio']} inertial tracks,"
+              f" host {host['smoother'] / max(runs['smoother'], 1):.2f} ms a step | slides"
+              f" {runs['smoother_slide']}, each one eigh wait on the card, host"
+              f" {host['smoother_slide'] / max(runs['smoother_slide'], 1):.2f} ms a slide"
+              f" | reference at {REF_VIO_SMOOTHER_COMMIT[:7]} | {vio_line(vs, REF_VIO_SMOOTHER)}")
     t0 = time.perf_counter()
     kl = phase_klt(bench_world, bench_frames, pool)
     ref = REF_KLT
@@ -1360,8 +1481,8 @@ def check(pool) -> int:
         "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES,
         "launches": full["launches"],
-        "launches_by_phase": {"full": full["launches"], "klt": kl["launches"],
-                              "rgbd": rg["launches"]},
+        "launches_by_phase": {"full": full["launches"], "vio-smoother": vs["launches"],
+                              "klt": kl["launches"], "rgbd": rg["launches"]},
         "max_abs_err": max(r["err"] for r in rows),
         "ms": kern["ms"],
         "plain_ms": kern["plain_ms"],

@@ -108,6 +108,16 @@ def test_klt_slice_modules_are_checked(module):
     assert ROOT / "vi_slam_tpu_torch" / module in _port_files()
 
 
+SLICE_6_MODULES = ("optim/smoother.py",)
+
+
+@pytest.mark.parametrize("module", SLICE_6_MODULES)
+def test_smoother_slice_modules_are_checked(module):
+    """The fixed-lag smoother's module is among the files checked above and
+    in the import test below."""
+    assert ROOT / "vi_slam_tpu_torch" / module in _port_files()
+
+
 def _no_cuda(monkeypatch):
     import torch
 
@@ -146,17 +156,28 @@ def test_entry_points_raise_without_cuda(monkeypatch):
             call()
 
 
-def test_smoother_raises():
-    """The fixed-lag smoother is a later slice: use_smoother=True raises
-    NotImplementedError naming it, before any device is touched."""
+def test_smoother_raises(monkeypatch):
+    """The fixed-lag smoother is ported: use_smoother=True builds on
+    device="cpu" with an empty window, and on the default device raises
+    without a card, as every entry point does. (The name is the test's
+    from before the smoother was ported, when use_smoother=True raised
+    NotImplementedError.)"""
     import dataclasses
 
+    from vi_slam_tpu_torch.optim import smoother
     from vi_slam_tpu_torch.pipeline.vio import make_stereo_inertial_vo
     from vi_slam_tpu_torch.utils.config import BAConfig, SystemConfig
 
     cfg = dataclasses.replace(SystemConfig(), ba=BAConfig(use_smoother=True))
-    with pytest.raises(NotImplementedError, match="smoother"):
-        make_stereo_inertial_vo(cfg, device="cpu")
+    vo = make_stereo_inertial_vo(cfg, device="cpu")
+    assert vo.smoother_count == 0 and isinstance(vo.smoother_win, smoother.SmootherWindow)
+    assert vo.smoother_win.T_R.shape == (cfg.ba.smoother_window, 3, 3)
+    assert vo.smoother_win.vis_xw.shape == (cfg.ba.smoother_window, cfg.ba.smoother_vis, 3)
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="cuda"):
+        make_stereo_inertial_vo(cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        smoother.allocate_window(6, 96)
 
 
 def test_klt_stereo_inertial_raises():

@@ -35,10 +35,11 @@ loop figures as `--loop` does, and the frame on which each loop was
 corrected (the frames dispatched when the correction ends).
 
     JAX_PLATFORMS=cpu python tools/slice_reference_ate.py [--frames 100]
-    JAX_PLATFORMS=cpu python tools/slice_reference_ate.py --bench-cadences --frames 200 --flush-at 10
+    JAX_PLATFORMS=cpu python tools/slice_reference_ate.py --bench-cadences --frames 120 --world-frames 200 --flush-at 10
+    JAX_PLATFORMS=cpu python tools/slice_reference_ate.py --frames 30 --world-frames 50 --flush-at 10
     JAX_PLATFORMS=cpu python tools/slice_reference_ate.py --loop --frames 200 --flush-at 10 [--no-atlas]
     JAX_PLATFORMS=cpu python tools/slice_reference_ate.py --ring --frames 120 --flush-at 10 --no-atlas
-    JAX_PLATFORMS=cpu python tools/slice_reference_ate.py --vio --frames 60 --flush-at 8
+    JAX_PLATFORMS=cpu python tools/slice_reference_ate.py --vio [--smoother] --frames 60 --flush-at 8
     JAX_PLATFORMS=cpu python tools/slice_reference_ate.py --klt --frames 60 --flush-at 10
     JAX_PLATFORMS=cpu python tools/slice_reference_ate.py --rgbd --frames 30
 
@@ -50,7 +51,10 @@ its 200 Hz IMU stream, no vocabulary. It adds the inertial figures:
 the estimated gyro and accelerometer biases beside the truth, the angle of
 the estimated gravity to the truth, and the runs of each program
 (integration, inertial track, inertial init, VI local BA, full inertial BA,
-mapping pass, maintenance).
+mapping pass, maintenance). `--smoother` turns the fixed-lag smoother on
+(`use_smoother=True`, as `tools/bench_vio.py --smoother` does) and adds its
+steps (one in every inertial track) and slides (a step that found the
+window full and marginalized its oldest state first).
 
 With `--klt` it runs bench.py's configuration with `frontend="klt"`
 (`bench.py --frontend klt`: the KLT track-then-redetect frontend of
@@ -69,6 +73,12 @@ of tests/test_lifecycle.py), so that the reference gets the same maps as
 
 This is an accuracy figure, not a speed: `chip_smoke.py` holds the port's
 ATE on the GPU to it.
+
+`--world-frames N` builds the billboard world for N frames (default: the
+frames run) and runs its first `--frames`: the world's boards depend on
+its length, so the smoke's full phase (the first 120 frames of bench.py's
+200-frame world) and slice phase (the first 30 of a 50-frame world) take
+their references with `--world-frames 200` and `--world-frames 50`.
 
 `--flush-at N` drains the pipeline before frame N, as bench.py does at
 the end of its warm-up (`--warmup`, 10) and `chip_smoke.py` does at frame
@@ -136,14 +146,15 @@ def slice_config(bench_cadences: bool = False, atlas: bool = True) -> SystemConf
     )
 
 
-def vio_config() -> SystemConfig:
-    """tools/bench_vio.py's configuration (smoother off)."""
+def vio_config(smoother: bool = False) -> SystemConfig:
+    """tools/bench_vio.py's configuration (`--smoother`: the fixed-lag
+    smoother on)."""
     return SystemConfig(
         camera=CameraConfig(width=W, height=H, fx=FX, fy=FY, cx=CX, cy=CY,
                             bf=BF, th_depth=35.0, fps=10.0),
         extractor=ExtractorConfig(n_features=2000),
         ba=BAConfig(max_local_kfs=6, max_local_points=2048, local_ba_iters=4,
-                    inertial_window=8, mapping_fuse_window=1),
+                    inertial_window=8, mapping_fuse_window=1, use_smoother=smoother),
         map=MapConfig(max_keyframes=256, max_points=65536, max_obs_per_point=8),
         imu=IMUConfig(freq=200.0),
         tracker=TrackerConfig(max_frames_between_kf=4, maintenance_every=8,
@@ -152,20 +163,30 @@ def vio_config() -> SystemConfig:
 
 
 def instrument_vio(vo, counts, stage_frames):
-    """Count the inertial programs of a reference StereoInertialVO, and
-    record the frame of each initialization stage."""
-    for attr, key in (("_integrate_fn", "integrate"), ("_track_vio_fn", "track_vio"),
-                      ("_vi_ba_fn", "vi_local_ba"), ("_full_vi_ba_fn", "full_inertial_ba"),
-                      ("_mapping_fn", "mapping"), ("_maintenance_fn", "maintenance")):
+    """Count the inertial programs of a reference StereoInertialVO (with the
+    smoother on, its steps and slides too), and record the frame of each
+    initialization stage."""
+    for attr, key in (("_integrate_fn", "integrate"), ("_vi_ba_fn", "vi_local_ba"),
+                      ("_full_vi_ba_fn", "full_inertial_ba"), ("_mapping_fn", "mapping"),
+                      ("_maintenance_fn", "maintenance")):
         count_calls(vo, attr, counts, key)
-    fused = vo._frame_vio_fn
+    smoother = vo.cfg.ba.use_smoother
+    window = vo.cfg.ba.smoother_window
 
-    def frame_vio(*a, **kw):  # one fused frame integrates and tracks
-        counts["integrate"] = counts.get("integrate", 0) + 1
-        counts["track_vio"] = counts.get("track_vio", 0) + 1
-        return fused(*a, **kw)
+    def tracked(fn, fused):
+        def wrapped(*a, **kw):  # the last argument: the smoother's step count
+            if fused:  # one fused frame integrates and tracks
+                counts["integrate"] = counts.get("integrate", 0) + 1
+            counts["track_vio"] = counts.get("track_vio", 0) + 1
+            if smoother:
+                counts["smoother"] = counts.get("smoother", 0) + 1
+                if int(a[-1]) >= window:
+                    counts["smoother_slide"] = counts.get("smoother_slide", 0) + 1
+            return fn(*a, **kw)
+        return wrapped
 
-    vo._frame_vio_fn = frame_vio
+    vo._track_vio_fn = tracked(vo._track_vio_fn, False)
+    vo._frame_vio_fn = tracked(vo._frame_vio_fn, True)
     count_calls(ref_vio.iinit, "inertial_init", counts, "inertial_init")
     init = vo._maybe_init_imu
 
@@ -182,7 +203,7 @@ def run_vio(args):
     """bench_vio.py's run: (figures, ATE)."""
     iw, _, frames = synthetic.make_billboard_inertial_sequence(
         args.frames, FX, FY, CX, CY, W, H, BF, n_landmarks=2000, seed=5)
-    vo = ref_vio.StereoInertialVO(vio_config())
+    vo = ref_vio.StereoInertialVO(vio_config(args.smoother))
     counts, stage_frames = {}, []
     instrument_vio(vo, counts, stage_frames)
     t0 = time.time()
@@ -377,6 +398,8 @@ def git_commit() -> str:
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=100)
+    ap.add_argument("--world-frames", type=int, metavar="N",
+                    help="the billboard world's length (default: --frames); its first --frames run")
     ap.add_argument("--bench-cadences", action="store_true",
                     help="bench.py's mapping/local-BA/maintenance cadences (2/3/8)")
     ap.add_argument("--flush-at", type=int, metavar="N",
@@ -390,6 +413,8 @@ def main():
     ap.add_argument("--no-atlas", action="store_true", help="atlas_enabled=False")
     ap.add_argument("--vio", action="store_true",
                     help="tools/bench_vio.py's stereo-inertial configuration and world")
+    ap.add_argument("--smoother", action="store_true",
+                    help="with --vio: the fixed-lag smoother on (bench_vio.py --smoother)")
     ap.add_argument("--klt", action="store_true",
                     help="bench.py --frontend klt over the first --frames of its world")
     ap.add_argument("--rgbd", action="store_true",
@@ -411,7 +436,8 @@ def main():
     if args.vio:
         t0 = time.time()
         extra, vo, ate = run_vio(args)
-        out = {"frames": args.frames, "world": "vio", "flush_at": args.flush_at,
+        out = {"frames": args.frames, "world": "vio", "smoother": args.smoother,
+               "flush_at": args.flush_at,
                "ate_cm": ate["rmse"] * 100.0,
                "lost": sum(1 for r in vo.records if r.state != "OK"),
                "keyframes": vo.n_kf, "map_points": vo.n_mp, **extra,
@@ -449,7 +475,7 @@ def main():
         vo._after_loop_correction = corrected
     else:
         world = synthetic.make_billboard_world(
-            n_frames=args.frames, n_boards=4000, seed=11, speed=1.0
+            n_frames=args.world_frames or args.frames, n_boards=4000, seed=11, speed=1.0
         )
         vo = make_stereo_vo(cfg)
     for i in range(args.frames):
@@ -469,11 +495,12 @@ def main():
         print(f"frame {i} {time.time() - t0:.1f}s", file=sys.stderr,
               flush=True)
     est = vo.trajectory_wc()
-    ate = evaluation.ate_rmse(est[:, :3, 3], world.poses_wc[:, :3, 3])
+    ate = evaluation.ate_rmse(est[:, :3, 3], world.poses_wc[:args.frames, :3, 3])
     commit = git_commit()
     out = {
         "frames": args.frames,
         "world": "ring" if args.ring else "loop" if args.loop else "billboard",
+        "world_frames": args.world_frames or args.frames,
         "atlas": not args.no_atlas,
         "cadences": "bench" if args.bench_cadences or looped else "never",
         "perturb": args.perturb,

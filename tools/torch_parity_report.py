@@ -42,10 +42,22 @@ at the fed port's first departing frame the port's frame program run on
 the reference's own inputs of that frame: where its counts equal the
 reference's, the departure comes from the state before that frame.
 
+With `--vio` it runs tools/bench_vio.py's stereo-inertial configuration
+over its world (`make_billboard_inertial_sequence(F, ..., seed=5)` with
+the 200 Hz IMU stream, drained before frame 8 as the smoke's vio phase
+runs; `--smoother` turns the fixed-lag smoother on): the reference, the
+own port and the port fed the reference's features of each frame (from
+its extraction program before the IMU is ready, from its fused inertial
+frame program after). The line adds each run's initialization stages with
+their frames, gravity and biases, the first frame whose lost or tracked
+state differs, and the largest pose difference of each port run from the
+reference before and at its first departure.
+
     JAX_PLATFORMS=cpu python tools/torch_parity_report.py [--frames 100]
     JAX_PLATFORMS=cpu python tools/torch_parity_report.py --bench-cadences --frames 200
     JAX_PLATFORMS=cpu python tools/torch_parity_report.py --loop --frames 200
     JAX_PLATFORMS=cpu python tools/torch_parity_report.py --klt --frames 60
+    JAX_PLATFORMS=cpu python tools/torch_parity_report.py --vio [--smoother] --frames 60
 """
 
 import argparse
@@ -72,6 +84,7 @@ import torch  # noqa: E402
 import chip_smoke  # noqa: E402
 from slice_reference_ate import bench_vocabulary, instrument_loop, loop_frames  # noqa: E402
 from slice_reference_ate import slice_config as ref_slice_config  # noqa: E402
+from slice_reference_ate import vio_config as ref_vio_config  # noqa: E402
 from test_torch_loop_parts import ReferenceDraws  # noqa: E402
 from vi_slam_tpu.io import evaluation as ref_evaluation  # noqa: E402
 from vi_slam_tpu.ops import pyramid as ref_pyr  # noqa: E402
@@ -260,6 +273,97 @@ def klt_report(n: int) -> None:
     }))
 
 
+def vio_report(n: int, smoother: bool, flush_at: int = chip_smoke.VIO_WARM) -> None:
+    """The stereo-inertial pipeline's reference, own and fed runs over
+    tools/bench_vio.py's world; one JSON line."""
+    from vi_slam_tpu.pipeline import vio as ref_vio
+    from vi_slam_tpu_torch.pipeline.vio import make_stereo_inertial_vo
+
+    t0 = time.time()
+    iw, frames = chip_smoke.vio_world()
+    frames = frames[:n]
+    ref_cfg = ref_vio_config(smoother)
+    port_cfg = config_from_dict(dataclasses.asdict(ref_cfg))
+    ref = ref_vio.StereoInertialVO(ref_cfg)
+    ref_feats = []
+    extract_fn, frame_fn = ref._extract_pair_fn, ref._frame_vio_fn
+
+    def keep(f, u, d):
+        ref_feats.append(([np.array(x) for x in f], np.array(u), np.array(d)))
+
+    def ref_extract(imgs):
+        out = extract_fn(imgs)
+        keep(*out)
+        return out
+
+    def ref_frame(*a):
+        out = frame_fn(*a)
+        keep(*out[12:15])
+        return out
+
+    ref._extract_pair_fn, ref._frame_vio_fn = ref_extract, ref_frame
+    own = make_stereo_inertial_vo(port_cfg, device="cpu")
+    fed = make_stereo_inertial_vo(port_cfg, device="cpu")
+    fed_queue = iter(ref_feats)
+
+    def fed_extract(imgs):
+        f, u, d = next(fed_queue)
+        f = list(f)
+        f[4] = f[4].view(np.int32)
+        return Features(*(torch.from_numpy(x) for x in f)), torch.from_numpy(u), torch.from_numpy(d)
+
+    fed._extract_pair = fed_extract
+    runs = {"ref": ref, "own": own, "fed": fed}
+    stats, stages = {k: {} for k in runs}, {k: [] for k in runs}
+    for name, vo in runs.items():
+        record_frames(vo, stats[name])
+    for i, (imgL, imgR) in enumerate(frames):
+        for name, vo in runs.items():
+            if i == flush_at:
+                vo.flush()
+            stage = vo._init_stage
+            vo.process_stereo_inertial(imgL, imgR, iw.imu_per_frame[i], iw.timestamps[i])
+            if vo._init_stage != stage:
+                stages[name].append(vo.records[-1].frame_id)
+        print(f"frame {i} {time.time() - t0:.1f}s", file=sys.stderr, flush=True)
+    for vo in runs.values():
+        vo.flush()
+    trajs = {name: vo.trajectory_wc() for name, vo in runs.items()}
+
+    def summary(name, vo):
+        ate = ref_evaluation.ate_rmse(trajs[name][:, :3, 3], iw.world.poses_wc[:n, :3, 3])
+        g = np.asarray(vo.g_w_dev, np.float64)
+        cos = g @ iw.gravity_w / max(np.linalg.norm(g) * np.linalg.norm(iw.gravity_w), 1e-12)
+        return {"ate_cm": ate["rmse"] * 100.0, "keyframes": vo.n_kf, "map_points": vo.n_mp,
+                "lost": sum(1 for r in vo.records if r.state != "OK"),
+                "imu_ready": bool(vo.imu_ready), "init_stage": int(vo._init_stage),
+                "init_stage_frames": stages[name],
+                "gravity_angle_deg": float(np.degrees(np.arccos(np.clip(cos, -1.0, 1.0)))),
+                "bias_gyro": np.asarray(vo.bg_dev, np.float64).tolist(),
+                "bias_acc": np.asarray(vo.ba_dev, np.float64).tolist(),
+                "keyframe_frames": [r.frame_id for r in vo.records
+                                    if np.array_equal(r.T_rel, np.eye(4))]}
+
+    def pose_diff(name, dep):
+        d = np.abs(trajs[name][:, :3, 3] - trajs["ref"][:, :3, 3]).max(axis=1)
+        f = n if dep is None else dep["frame"]
+        return {"before": float(d[:f].max()) if f > 0 else 0.0,
+                "at": None if dep is None else float(d[f]), "end": float(d[-1])}
+
+    deps = {k: first_departure(stats["ref"], stats[k], n) for k in ("own", "fed")}
+    print(json.dumps({
+        "world": f"{chip_smoke.W}x{chip_smoke.H}, {n} frames of tools/bench_vio.py's world,"
+                 f" smoother {'on' if smoother else 'off'}, drained before frame {flush_at}, CPU",
+        "first_departure_own": deps["own"], "first_departure_fed": deps["fed"],
+        "first_state_departure_own": state_departure(ref, own),
+        "first_state_departure_fed": state_departure(ref, fed),
+        "position_max_abs_diff_m_own": pose_diff("own", deps["own"]),
+        "position_max_abs_diff_m_fed": pose_diff("fed", deps["fed"]),
+        "ref": summary("ref", ref), "own": summary("own", own), "fed": summary("fed", fed),
+        "seconds": time.time() - t0,
+    }))
+
+
 def klt_frame_on_reference_state(ref_cfg, port_cfg, frames, f):
     """The reference run again up to frame `f`, its KLT frame program's
     inputs at `f` kept (map, track set, previous pyramid, carry, motion
@@ -317,7 +421,14 @@ def main():
                     help="bench.py --loop's world with a vocabulary, atlas off")
     ap.add_argument("--klt", action="store_true",
                     help="bench.py --frontend klt over the first --frames of its world")
+    ap.add_argument("--vio", action="store_true",
+                    help="tools/bench_vio.py's stereo-inertial configuration and world")
+    ap.add_argument("--smoother", action="store_true",
+                    help="with --vio: the fixed-lag smoother on")
     args = ap.parse_args()
+    if args.vio:
+        vio_report(args.frames, args.smoother)
+        return
     if args.klt:
         klt_report(args.frames)
         return
@@ -328,7 +439,7 @@ def main():
         world, frames = loop_frames(n)
         n_world = n
     else:
-        n_world = chip_smoke.N_FULL_FRAMES if args.bench_cadences else chip_smoke.N_FRAMES
+        n_world = chip_smoke.N_FULL_FRAMES if args.bench_cadences else chip_smoke.SLICE_WORLD_FRAMES
         world = synthetic.make_billboard_world(n_frames=n_world, n_boards=4000, seed=11, speed=1.0)
         frames = chip_smoke.render_frames(world, n)
     left0 = frames[0][0].astype(np.uint8).astype(np.float32)

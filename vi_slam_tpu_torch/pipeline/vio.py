@@ -1,5 +1,5 @@
 """Stereo visual-inertial odometry — a PyTorch copy of the JAX package's
-`pipeline/vio.py::StereoInertialVO`, without the fixed-lag smoother.
+`pipeline/vio.py::StereoInertialVO`.
 
 The keyframe chain's preintegration lives on the device as one
 `Preintegrated` with a leading (max_keyframes,) dimension, beside the
@@ -8,8 +8,13 @@ IMU samples of the frame are integrated (a loop over the samples, the
 rows past them skipped) and folded into the running keyframe segment;
 once the IMU is initialized, tracking predicts the pose from the IMU and
 solves the previous and current frame states together under a marginal
-prior (`optim/pose_inertial.py`). Keyframe creation closes the running
-segment; a culled keyframe's segment is composed into its successor's.
+prior (`optim/pose_inertial.py`). With `cfg.ba.use_smoother` the solved
+state then enters the fixed-lag smoother (`optim/smoother.py`): its
+best-anchored inliers become the new slot's visual anchors, the frame's
+preintegration its inertial edge, and the whole window is re-optimized;
+the frame keeps the smoothed pose and velocity and the solve's biases.
+Keyframe creation closes the running segment; a culled keyframe's segment
+is composed into its successor's.
 
 Initialization is staged as in the reference: at 2 s, 5 s and 15 s of
 keyframe span, gravity, biases and velocities are solved against the
@@ -41,7 +46,7 @@ import torch
 from vi_slam_tpu_torch.imu import preintegration as pre
 from vi_slam_tpu_torch.lie.se3 import SE3
 from vi_slam_tpu_torch.optim import inertial_init as iinit
-from vi_slam_tpu_torch.optim import pose_inertial, vi_ba
+from vi_slam_tpu_torch.optim import pose_inertial, smoother, vi_ba
 from vi_slam_tpu_torch.pipeline import steps
 from vi_slam_tpu_torch.pipeline.stereo_vo import (
     LOST, NOT_INITIALIZED, OK, RECENTLY_LOST, FrameJob, StereoVO, TrackStats,
@@ -51,12 +56,10 @@ from vi_slam_tpu_torch.retrieval import vocabulary as voc
 from vi_slam_tpu_torch.slam_map.state import _scatter_set_, dev_index
 from vi_slam_tpu_torch.utils.config import SystemConfig
 
-SMOOTHER_SLICE = ("the fixed-lag smoother (cfg.ba.use_smoother) comes with a later slice of the "
-                  "port (optim/smoother.py)")
-
-# the inertial programs the timer counts
+# the inertial programs the timer counts ("smoother": a smoother step inside
+# track_vio; "smoother_slide": its marginalization, one eigh wait on a card)
 INERTIAL_PROGRAMS = ("integrate", "track_vio", "inertial_init", "vi_local_ba",
-                     "full_inertial_ba")
+                     "full_inertial_ba", "smoother", "smoother_slide")
 
 
 def _pad_imu(samples, t_prev: float, t_now: float, cap: int):
@@ -89,8 +92,6 @@ class StereoInertialVO(StereoVO):
     _INIT_STAGES = ((2.0, 1e2, 1e6), (5.0, 1.0, 1e5), (15.0, 1e-2, 1e-2))
 
     def __init__(self, cfg: SystemConfig, device="cuda", vocab: Optional[voc.Vocabulary] = None):
-        if cfg.ba.use_smoother:
-            raise NotImplementedError(SMOOTHER_SLICE)
         super().__init__(cfg, device=device, vocab=vocab)
         dev = self.device
         ic = cfg.imu
@@ -103,6 +104,11 @@ class StereoInertialVO(StereoVO):
         self.gravity_mag = float(ic.gravity)
         self._walk_g2 = float(ic.walk_gyro) ** 2
         self._walk_a2 = float(ic.walk_acc) ** 2
+        # the smoother's walk informations, at the nominal frame interval
+        nominal_dt = 1.0 / max(cfg.camera.fps, 1.0)
+        f32 = dict(dtype=torch.float32, device=dev)
+        self._sm_wig = torch.tensor(1.0 / (self._walk_g2 * nominal_dt), **f32)
+        self._sm_wia = torch.tensor(1.0 / (self._walk_a2 * nominal_dt), **f32)
         self._init_k = 16  # keyframes of the initialization window
         self._full_w = 32  # chain window of the full inertial BA
         for name in INERTIAL_PROGRAMS:
@@ -142,16 +148,54 @@ class StereoInertialVO(StereoVO):
                     self.cam, prior, T_last, v_last, bg, ba, T_pred, v_pred, obs, p_frame, g_w,
                     self.R_bc, self.t_bc, wig, wia, rounds=cfg.ba.pose_rounds,
                     iters=cfg.ba.pose_iters_per_round)
-                return m, kp_idx, out
+                return m, obs, kp_idx, out
 
             radius = cfg.tracker.search_radius
-            m, kp_idx, out = run_match(radius)
+            m, obs, kp_idx, out = run_match(radius)
             if int(out[-1]) < cfg.tracker.min_matches_motion:
-                m, kp_idx, out = run_match(3.0 * radius)
+                m, obs, kp_idx, out = run_match(3.0 * radius)
             T, v_new, bg_new, ba_new, prior_new, inlier, n_in = out
+            if cfg.ba.use_smoother:
+                # the smoothed pose and velocity go on; the biases stay the
+                # solve's (a window of frames under generic priors does not
+                # observe them better than the keyframe chain)
+                anchor_ok = m.ok & proj.valid & inlier & obs.valid
+                T, v_new = self._smoother_step(T, v_new, bg_new, ba_new, p_frame, obs, anchor_ok,
+                                               g_w)
             bundle = self._track_bundle(mstate, ref_slot, feats, depth, proj, mp_ids, mp_mask, m,
                                         kp_idx, T, T_last, inlier, n_in)
         return bundle, v_new, bg_new, ba_new, prior_new
+
+    def _smoother_step(self, T: SE3, v, bg, ba, p_frame: pre.Preintegrated, obs, anchor_ok, g_w):
+        """One fixed-lag smoother update: slide the window when it is full
+        (the oldest state Schur-marginalized into the prior), put the
+        solved state in the next slot with its best inlier anchors (finest
+        pyramid levels first) and the frame's preintegration as the edge
+        from the slot before, then re-optimize the whole window from there.
+        The count of steps since the last reset lives on the host, so the
+        slide and the fresh window's prior are host branches that wait for
+        nothing. Returns the slot's smoothed pose and velocity. The
+        inertial edges take the identity extrinsic, whatever cfg.imu.T_bc
+        is (the reference's, ROADMAP H12)."""
+        cfg = self.cfg.ba
+        SW = cfg.smoother_window
+        with self.timer.span("smoother"):
+            xw, uv, s2, vvalid = smoother.select_anchors(obs, anchor_ok, cfg.smoother_vis)
+            win = self.smoother_win
+            if self.smoother_count >= SW:
+                with self.timer.span("smoother_slide"):
+                    win = smoother.marginalize_oldest(self.cam, win, g_w, self._sm_wig,
+                                                      self._sm_wia)
+            k = min(self.smoother_count, SW - 1)
+            win = smoother.set_slot(win, k, T, v, bg, ba, xw, uv, s2, vvalid,
+                                    p_frame if k > 0 else None)
+            if self.smoother_count == 0:
+                win = smoother.seed_prior(win, T, v, bg, ba)
+            win, _ = smoother.optimize_window(self.cam, win, g_w, self._sm_wig, self._sm_wia,
+                                              iters=cfg.smoother_iters)
+            self.smoother_win = win
+            self.smoother_count += 1
+            return SE3(win.T_R[k], win.T_t[k]), win.vel[k]
 
     def _close_segment(self, slot, accum: pre.Preintegrated, v, bg, ba) -> pre.Preintegrated:
         """Store the finished segment and velocity at keyframe `slot` (in
@@ -418,6 +462,7 @@ class StereoInertialVO(StereoVO):
             T2[:3, 3] *= s
             culled[k] = (p, T2)
         self.culled_parent = culled
+        self._reset_smoother()
 
     def _pre_ok(self, window: np.ndarray, Wv: int) -> np.ndarray:
         """(Wv-1,) True where the chain edge window[i] -> window[i+1] has a
@@ -448,10 +493,29 @@ class StereoInertialVO(StereoVO):
         if self.loop_closer is not None:
             self.loop_closer.gravity_aligned = False
             self.loop_closer.gravity_w = None
+        self._reset_smoother()
 
     def _reseed_prior(self):
         self.prior_dev = pose_inertial.initial_prior(self.T_dev, self.vel_w_dev, self.bg_dev,
                                                      self.ba_dev)
+
+    def _reset_smoother(self):
+        """An empty smoother window: after the state's basis (gravity,
+        biases, scale, the map) changed, its warm start would be linearized
+        at a stale state."""
+        ba = self.cfg.ba
+        self.smoother_win = smoother.allocate_window(ba.smoother_window, ba.smoother_vis,
+                                                     device=self.device)
+        self.smoother_count = 0
+
+    def _shift_smoother(self, delta: SE3):
+        """A keyframe-rate BA's correction of the live pose applied to the
+        window's poses and its prior's linearization point (velocity and
+        bias shifts are second order for such corrections)."""
+        w = self.smoother_win
+        T = SE3(w.T_R, w.T_t).compose(delta)
+        P = SE3(w.prior_R, w.prior_t).compose(delta)
+        self.smoother_win = w._replace(T_R=T.R, T_t=T.t, prior_R=P.R, prior_t=P.t)
 
     # ---------------------------------------------------- atlas (inertial)
 
@@ -508,6 +572,7 @@ class StereoInertialVO(StereoVO):
         self.imu_ready = act_ready or side.get("imu_ready", False)
         self._init_stage = max(act_stage, side.get("init_stage", 0))
         self._reseed_prior()
+        self._reset_smoother()
         if self.imu_ready and len(self.kf_chain) >= 3:
             self._full_inertial_ba()
         return True
@@ -531,6 +596,7 @@ class StereoInertialVO(StereoVO):
         ref = max(self.ref_kf, 0)
         self.vel_w_dev = R_cor[ref] @ self.vel_w_dev
         self._reseed_prior()
+        self._reset_smoother()
 
     # ------------------------------------------------------- initialization
 
@@ -585,6 +651,7 @@ class StereoInertialVO(StereoVO):
         # the running segment is linearized at the new biases
         self._accum = self._accum._replace(bias_gyro=res.bg, bias_acc=res.ba)
         self._reseed_prior()
+        self._reset_smoother()
         self.imu_ready = True
         self._init_stage += 1
         self.init_stage_frames.append(self.records[-1].frame_id)
@@ -619,6 +686,7 @@ class StereoInertialVO(StereoVO):
             self._last_good = (self.T_dev.R, self.T_dev.t)
             self.vel_w_dev = self.kf_vel_dev[self.kf_chain[-1]].clone()
             self._reseed_prior()
+            self._reset_smoother()
 
     def _local_ba(self):
         if not self.imu_ready:
@@ -634,8 +702,10 @@ class StereoInertialVO(StereoVO):
             self.T_dev = self.T_dev.compose(delta)
             self._last_good = (self.T_dev.R, self.T_dev.t)
             # mapping rewrote the keyframe states: the per-frame prior is
-            # re-seeded at the corrected live state
+            # re-seeded at the corrected live state, and the smoother's
+            # window takes the same correction
             self._reseed_prior()
+            self._shift_smoother(delta)
 
     def _handle_failure(self, job: FrameJob, st: TrackStats, T_np: np.ndarray) -> TrackStats:
         """With a live inertial state the grace window is bridged by dead
@@ -659,9 +729,9 @@ def make_stereo_inertial_vo(cfg: SystemConfig, vocab: Optional[voc.Vocabulary] =
                             device="cuda") -> StereoInertialVO:
     """Entry point of the stereo-inertial pipeline; runs on CUDA unless the
     caller passes device="cpu". A vocabulary turns on loop closing,
-    relocalization and the atlas. The ORB frontend only, as in the reference
-    (its StereoInertialVO is a StereoVO, not a KltStereoVO); the fixed-lag
-    smoother raises NotImplementedError."""
+    relocalization and the atlas, `cfg.ba.use_smoother` the fixed-lag
+    smoother. The ORB frontend only, as in the reference (its
+    StereoInertialVO is a StereoVO, not a KltStereoVO)."""
     if cfg.tracker.frontend == "klt":
         raise NotImplementedError("the stereo-inertial pipeline has the ORB frontend only:"
                                   " the reference has no KLT stereo-inertial pipeline")
