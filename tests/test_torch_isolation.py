@@ -118,6 +118,17 @@ def test_smoother_slice_modules_are_checked(module):
     assert ROOT / "vi_slam_tpu_torch" / module in _port_files()
 
 
+SLICE_7_MODULES = ("geometry/two_view.py", "pipeline/mono_vo.py", "utils/config.py")
+
+
+@pytest.mark.parametrize("module", SLICE_7_MODULES)
+def test_mono_slice_modules_are_checked(module):
+    """The monocular slice's modules (two-view initialization, MonoVO and
+    the kitti00_mono preset) are among the files checked above and in
+    the import test below."""
+    assert ROOT / "vi_slam_tpu_torch" / module in _port_files()
+
+
 def _no_cuda(monkeypatch):
     import torch
 
@@ -128,16 +139,18 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     """Every entry point defaults to the card and raises without one:
     make_stereo_inertial_vo, the KLT frontend (through either module's
     make_stereo_vo, and KltStereoVO itself), make_oracle_features, the BoW
-    database and its allocation."""
+    database and its allocation, and MonoVO (with the kitti00_mono
+    preset)."""
     import dataclasses
 
     import numpy as np
 
     from vi_slam_tpu_torch.pipeline import klt_vo, stereo_vo
+    from vi_slam_tpu_torch.pipeline.mono_vo import MonoVO
     from vi_slam_tpu_torch.pipeline.stereo_vo import make_oracle_features
     from vi_slam_tpu_torch.pipeline.vio import make_stereo_inertial_vo
     from vi_slam_tpu_torch.retrieval import database
-    from vi_slam_tpu_torch.utils.config import SystemConfig, TrackerConfig
+    from vi_slam_tpu_torch.utils.config import SystemConfig, TrackerConfig, kitti00_mono
 
     _no_cuda(monkeypatch)
     klt = dataclasses.replace(SystemConfig(), tracker=TrackerConfig(frontend="klt"))
@@ -150,6 +163,7 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                                      np.zeros((2, 8), np.uint32), np.zeros(2, np.int32)),
         lambda: database.KeyFrameDatabase(8, 16),
         lambda: database.allocate(8, 16),
+        lambda: MonoVO(kitti00_mono()),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="cuda"):

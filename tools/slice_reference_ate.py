@@ -42,6 +42,7 @@ corrected (the frames dispatched when the correction ends).
     JAX_PLATFORMS=cpu python tools/slice_reference_ate.py --vio [--smoother] --frames 60 --flush-at 8
     JAX_PLATFORMS=cpu python tools/slice_reference_ate.py --klt --frames 60 --flush-at 10
     JAX_PLATFORMS=cpu python tools/slice_reference_ate.py --rgbd --frames 30
+    JAX_PLATFORMS=cpu python tools/slice_reference_ate.py --mono --frames 60
 
 With `--vio` it runs `tools/bench_vio.py`'s configuration instead: the
 stereo-inertial pipeline (`StereoInertialVO.process_stereo_inertial`) over
@@ -70,6 +71,19 @@ them, and depth maps from the port's numpy z-buffer
 (`vi_slam_tpu_torch.io.synthetic.render_billboard_depth`, the rasterizer
 of tests/test_lifecycle.py), so that the reference gets the same maps as
 `chip_smoke.py`'s rgbd phase.
+
+With `--mono` it runs `MonoVO.process_mono` over the left images of
+`tools/bench_vio.py`'s world (`make_billboard_inertial_sequence(F, ...,
+n_landmarks=2000, seed=5)`) at its camera, extractor, BA and tracker
+settings with `sensor=MONOCULAR` and `bf=0` (the smoke's mono phase). The
+monocular path tracks synchronously, so there is no pipeline to drain and
+`--flush-at` does not apply. It prints the frame of the first OK record
+(initialization), the frames lost after it, the keyframes (and the frame
+of each) and map points, the scale-aligned ATE over the OK frames
+(`ate_rmse(with_scale=True)`) with its Horn scale, the accepted two-view
+solve's model and good count, the runs of the keyframe-rate programs, and
+the keyframes from `_create_keyframe` with the new points each
+triangulated.
 
 This is an accuracy figure, not a speed: `chip_smoke.py` holds the port's
 ATE on the GPU to it.
@@ -117,7 +131,7 @@ from vi_slam_tpu.retrieval import vocabulary as voc  # noqa: E402
 from vi_slam_tpu.pipeline.klt_vo import make_stereo_vo  # noqa: E402
 from vi_slam_tpu.pipeline import vio as ref_vio  # noqa: E402
 from vi_slam_tpu.utils.config import (  # noqa: E402
-    BAConfig, CameraConfig, ExtractorConfig, IMUConfig, MapConfig, SystemConfig,
+    BAConfig, CameraConfig, ExtractorConfig, IMUConfig, MapConfig, Sensor, SystemConfig,
     TrackerConfig,
 )
 
@@ -224,6 +238,68 @@ def run_vio(args):
         "bias_gyro_true": iw.bias_gyro.tolist(), "bias_acc_true": iw.bias_acc.tolist(),
         "programs": counts,
     }, vo, ate
+
+
+def mono_config() -> SystemConfig:
+    """tools/bench_vio.py's configuration with `sensor=MONOCULAR`, no
+    baseline and the smoother off (the smoke's mono phase)."""
+    cfg = vio_config()
+    return dataclasses.replace(cfg, sensor=Sensor.MONOCULAR,
+                               camera=dataclasses.replace(cfg.camera, bf=0.0))
+
+
+def run_mono(args):
+    """MonoVO over the left images of bench_vio.py's world: (figures,
+    MonoVO, world)."""
+    from vi_slam_tpu.pipeline import mono_vo as ref_mono
+
+    iw, _, frames = synthetic.make_billboard_inertial_sequence(
+        args.frames, FX, FY, CX, CY, W, H, BF, n_landmarks=2000, seed=5)
+    vo = ref_mono.MonoVO(mono_config())
+    counts, solves, new_points = {}, [], []
+    for attr, key in (("_mapping_fn", "mapping"), ("_local_ba_fn", "local_ba"),
+                      ("_maintenance_fn", "maintenance")):
+        count_calls(vo, attr, counts, key)
+    two_view = ref_mono.reconstruct_two_view
+
+    def solve(*a, **kw):
+        res = two_view(*a, **kw)
+        solves.append((bool(res.ok), bool(res.used_homography), int(res.n_good)))
+        return res
+
+    ref_mono.reconstruct_two_view = solve
+    create = vo._create_keyframe
+
+    def created(*a, **kw):
+        n = vo.n_mp
+        out = create(*a, **kw)
+        new_points.append((vo.frame_id, vo.n_mp - n))
+        return out
+
+    vo._create_keyframe = created
+    rng = np.random.default_rng(args.perturb) if args.perturb is not None else None
+    t0 = time.time()
+    try:
+        for i in range(args.frames):
+            img = frames[i][0] if rng is None else perturbed(frames[i][0], rng)
+            vo.process_mono(img, iw.timestamps[i])
+            print(f"frame {i} {time.time() - t0:.1f}s", file=sys.stderr, flush=True)
+    finally:
+        ref_mono.reconstruct_two_view = two_view
+    states = [r.state for r in vo.records]
+    first_ok = states.index("OK") if "OK" in states else None
+    accepted = [s for s in solves if s[0]]
+    return {
+        "init_frame": first_ok,
+        "lost_after_init": None if first_ok is None else sum(
+            1 for s in states[first_ok:] if s != "OK"),
+        "keyframe_frames": np.asarray(vo.map.kf_frame_id[:vo.n_kf]).tolist(),
+        "two_view_attempts": len(solves),
+        "used_homography": accepted[-1][1] if accepted else None,
+        "n_good": accepted[-1][2] if accepted else None,
+        "programs": counts,
+        "created_keyframes": [[f, n] for f, n in new_points],
+    }, vo, iw.world
 
 
 def loop_frames(n_frames: int):
@@ -419,7 +495,22 @@ def main():
                     help="bench.py --frontend klt over the first --frames of its world")
     ap.add_argument("--rgbd", action="store_true",
                     help="process_rgbd over the first --frames of bench.py's world")
+    ap.add_argument("--mono", action="store_true",
+                    help="MonoVO over the left images of tools/bench_vio.py's world")
     args = ap.parse_args()
+    if args.mono:
+        t0 = time.time()
+        extra, vo, world = run_mono(args)
+        est = vo.trajectory_wc()
+        ok = [i for i, r in enumerate(vo.records) if r.state == "OK"]
+        ate = evaluation.ate_rmse(est[ok, :3, 3], world.poses_wc[ok, :3, 3], with_scale=True)
+        out = {"frames": args.frames, "world": "vio_left", "perturb": args.perturb,
+               "ate_cm": ate["rmse"] * 100.0,
+               "horn_scale": ate["scale"], "ok_frames": len(ok), "keyframes": vo.n_kf,
+               "map_points": vo.n_mp, **extra, "commit": git_commit(),
+               "platform": jax.devices()[0].platform, "seconds": time.time() - t0}
+        print(json.dumps(out))
+        return
     if args.klt or args.rgbd:
         t0 = time.time()
         extra, vo, world = (run_klt if args.klt else run_rgbd)(args)

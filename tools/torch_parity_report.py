@@ -53,11 +53,34 @@ their frames, gravity and biases, the first frame whose lost or tracked
 state differs, and the largest pose difference of each port run from the
 reference before and at its first departure.
 
+With `--mono` it runs MonoVO over the left images of tools/bench_vio.py's
+world at its configuration with sensor=MONOCULAR and bf=0 (the smoke's
+mono phase): the reference first, with its features and its map and
+live pose after the initialization and after each local BA recorded;
+then the own port (its own features and two-view draws), the port fed the
+reference's features and two-view draws (PRNGKey(3), split per attempt),
+and the port fed those and the reference's map and pose after each BA
+(`fed_ba`: a monocular map's scale is a gauge that float32 BAs walk
+along differently, ROADMAP F14). The line adds each run's init frame,
+two-view model and good count, scale-aligned ATE over the OK frames with
+its Horn scale, keyframe frames and map points.
+
+With `--mono-seeds` it runs tests/test_mono_vo.py's world (oracle
+features, the first `--frames` frames) through the reference with its two-view key 3, 103,
+203, 303 and 403, and through the port with its Sampler seeded the same,
+with the monocular guards (`MonoVO.ba_guard`, the rescale after
+the initialization BA) and without them, at one torch thread as the test
+runs; one JSON line with each run's
+scale-aligned ATE, OK frames, keyframes and points: the spread of the
+limits that tests/test_torch_mono_vo.py holds its own-sampler run to.
+
     JAX_PLATFORMS=cpu python tools/torch_parity_report.py [--frames 100]
     JAX_PLATFORMS=cpu python tools/torch_parity_report.py --bench-cadences --frames 200
     JAX_PLATFORMS=cpu python tools/torch_parity_report.py --loop --frames 200
     JAX_PLATFORMS=cpu python tools/torch_parity_report.py --klt --frames 60
     JAX_PLATFORMS=cpu python tools/torch_parity_report.py --vio [--smoother] --frames 60
+    JAX_PLATFORMS=cpu python tools/torch_parity_report.py --mono --frames 60
+    JAX_PLATFORMS=cpu python tools/torch_parity_report.py --mono-seeds --frames 20
 """
 
 import argparse
@@ -364,6 +387,137 @@ def vio_report(n: int, smoother: bool, flush_at: int = chip_smoke.VIO_WARM) -> N
     }))
 
 
+def mono_report(n: int) -> None:
+    """MonoVO's reference, own, fed and fed_ba runs over the left images of
+    tools/bench_vio.py's world; one JSON line."""
+    from slice_reference_ate import mono_config as ref_mono_config
+    from test_torch_mono_vo import _feed, _instrument_reference, _Snapshots
+    from vi_slam_tpu.pipeline import mono_vo as ref_mono
+    from vi_slam_tpu_torch.pipeline.mono_vo import MonoVO
+
+    t0 = time.time()
+    iw, frames = chip_smoke.vio_world()
+    ref_cfg = ref_mono_config()
+    port_cfg = config_from_dict(dataclasses.asdict(ref_cfg))
+    ref = ref_mono.MonoVO(ref_cfg)
+    snaps = _Snapshots()
+    _instrument_reference(ref, snaps)
+    ref_feats, solves = [], []
+    extract = ref.extractor
+
+    def ref_extract(img):
+        f = extract(img)
+        ref_feats.append([np.array(x) for x in f])
+        return f
+
+    ref.extractor = ref_extract
+    two_view = ref_mono.reconstruct_two_view
+
+    def solve(*a, **kw):
+        res = two_view(*a, **kw)
+        if bool(res.ok):
+            solves.append((bool(res.used_homography), int(res.n_good)))
+        return res
+
+    ref_mono.reconstruct_two_view = solve
+    try:
+        for i in range(n):
+            ref.process_mono(frames[i][0], iw.timestamps[i])
+            print(f"ref frame {i} {time.time() - t0:.1f}s", file=sys.stderr, flush=True)
+    finally:
+        ref_mono.reconstruct_two_view = two_view
+    own = MonoVO(port_cfg, device="cpu")
+    fed = MonoVO(port_cfg, device="cpu", draw=ReferenceDraws(3))
+    fed_ba = MonoVO(port_cfg, device="cpu", draw=ReferenceDraws(3))
+    _feed(fed_ba, snaps)
+    for vo in (fed, fed_ba):
+        queue = iter(ref_feats)
+
+        def fed_extract(img, _q=queue):
+            f = list(next(_q))
+            f[4] = f[4].view(np.int32)
+            return Features(*(torch.from_numpy(x) for x in f))
+
+        vo.extractor = fed_extract
+    runs = {"own": own, "fed": fed, "fed_ba": fed_ba}
+    stats = {k: {} for k in runs}
+    for name, vo in runs.items():
+        record_frames(vo, stats[name])
+    for i in range(n):
+        for vo in runs.values():
+            vo.process_mono(frames[i][0], iw.timestamps[i])
+        print(f"port frame {i} {time.time() - t0:.1f}s", file=sys.stderr, flush=True)
+    ref_stats = {r.frame_id: (s.n_kfs, s.n_inliers, s.n_mps) for r, s in zip(ref.records,
+                                                                             ref.stats)}
+    trajs = {"ref": ref.trajectory_wc(), **{k: vo.trajectory_wc() for k, vo in runs.items()}}
+
+    def summary(name, vo, init):
+        states = [r.state for r in vo.records]
+        ok = [i for i, st in enumerate(states) if st == "OK"]
+        ate = ref_evaluation.ate_rmse(trajs[name][ok, :3, 3], iw.world.poses_wc[ok, :3, 3],
+                                      with_scale=True)
+        first = states.index("OK") if ok else None
+        return {"init_frame": first, "two_view": init, "ate_cm": ate["rmse"] * 100.0,
+                "horn_scale": ate["scale"], "keyframes": vo.n_kf, "map_points": vo.n_mp,
+                "lost_after_init": None if first is None else sum(
+                    1 for st in states[first:] if st != "OK"),
+                "keyframe_frames": np.asarray(vo.map.kf_frame_id[:vo.n_kf]).tolist()}
+
+    out = {"world": f"{chip_smoke.W}x{chip_smoke.H}, the left images of {n} frames of"
+                    " tools/bench_vio.py's world, sensor MONOCULAR, bf 0, CPU",
+           "ref": summary("ref", ref, solves[-1] if solves else None)}
+    for k, vo in runs.items():
+        out[f"first_departure_{k}"] = first_departure(ref_stats, stats[k], n)
+        out[f"first_state_departure_{k}"] = state_departure(ref, vo)
+        out[k] = summary(k, vo, vo.init_result)
+    out["seconds"] = time.time() - t0
+    print(json.dumps(out))
+
+
+def mono_seeds_report(n: int) -> None:
+    """tests/test_mono_vo.py's world, its first `n` frames, over five
+    two-view seeds: the reference, and the port with and without its
+    monocular guards; one JSON line."""
+    import test_torch_mono_vo as tm
+    from vi_slam_tpu.pipeline import mono_vo as ref_mono
+    from vi_slam_tpu_torch.pipeline.mono_vo import MonoVO
+    from vi_slam_tpu_torch.utils.sampling import Sampler
+
+    torch.set_num_threads(1)  # as the test runs it: the sums' order moves the runs
+    t0 = time.time()
+    world, frames = tm.mono_frames()  # the test's world (its length sets the landmarks)
+    frames = frames[:n]
+    cfg = tm.make_cfg()
+
+    def summary(vo):
+        traj = vo.trajectory_wc()
+        ok = [i for i, r in enumerate(vo.records) if r.state == "OK"]
+        ate = tm._ate(world, vo, traj) if len(ok) >= 3 else {"rmse": None}
+        return {"ate_m": ate["rmse"], "ok_frames": len(ok), "keyframes": vo.n_kf,
+                "map_points": vo.n_mp, "ate_limit_m": tm._ate_limit(world, vo) if ok else None}
+
+    out = {"world": f"tests/test_mono_vo.py's, {n} frames, CPU", "ref": [], "port": [],
+           "port_no_guards": []}
+    for k in range(5):
+        seed = 3 + 100 * k
+        ref = ref_mono.MonoVO(cfg)
+        ref._key = jax.random.PRNGKey(seed)
+        for i, fr in enumerate(frames):
+            ref.process_oracle_mono(fr.xy, fr.desc, fr.level, i * 0.1)
+        out["ref"].append({"key": seed, **summary(ref)})
+        for name, guards in (("port", True), ("port_no_guards", False)):
+            vo = MonoVO(tm.port_cfg(cfg), device="cpu", draw=Sampler(seed, "cpu"))
+            if not guards:
+                vo.ba_guard = False
+                vo._rescale_initial_map = lambda ids: None
+            for i, fr in enumerate(frames):
+                vo.process_oracle_mono(fr.xy, fr.desc, fr.level, i * 0.1)
+            out[name].append({"seed": seed, **summary(vo)})
+        print(f"seed {seed} {time.time() - t0:.1f}s", file=sys.stderr, flush=True)
+    out["seconds"] = time.time() - t0
+    print(json.dumps(out))
+
+
 def klt_frame_on_reference_state(ref_cfg, port_cfg, frames, f):
     """The reference run again up to frame `f`, its KLT frame program's
     inputs at `f` kept (map, track set, previous pyramid, carry, motion
@@ -421,11 +575,21 @@ def main():
                     help="bench.py --loop's world with a vocabulary, atlas off")
     ap.add_argument("--klt", action="store_true",
                     help="bench.py --frontend klt over the first --frames of its world")
+    ap.add_argument("--mono", action="store_true",
+                    help="MonoVO over the left images of tools/bench_vio.py's world")
+    ap.add_argument("--mono-seeds", action="store_true",
+                    help="tests/test_mono_vo.py's world over five two-view seeds")
     ap.add_argument("--vio", action="store_true",
                     help="tools/bench_vio.py's stereo-inertial configuration and world")
     ap.add_argument("--smoother", action="store_true",
                     help="with --vio: the fixed-lag smoother on")
     args = ap.parse_args()
+    if args.mono:
+        mono_report(args.frames)
+        return
+    if args.mono_seeds:
+        mono_seeds_report(args.frames)
+        return
     if args.vio:
         vio_report(args.frames, args.smoother)
         return

@@ -230,14 +230,29 @@ def _build_and_solve(cam: CameraParams, poses: SE3, points: torch.Tensor, prob: 
 
 
 def _ba_core(cam: CameraParams, prob: BAProblem, iters: int, use_huber: bool, lam0: float,
-             strategy: str = "lm", assembly: str = "dense") -> BAResult:
-    """The LM (or damped Gauss-Newton) loop; `iters` steps, unrolled."""
+             strategy: str = "lm", assembly: str = "dense",
+             guard_in_front: bool = False) -> BAResult:
+    """The LM (or damped Gauss-Newton) loop; `iters` steps, unrolled.
+
+    An observation whose point is not in front of its camera (depth below
+    0.05) drops out of the cost, so a step that moves points behind the
+    cameras lowers the cost. Where the problem has a gauge that such a
+    step can follow (a monocular map's scale, with one keyframe fixed),
+    float32 rounding can make LM take it, and the map comes out mirrored
+    behind its cameras with no observation left (ROADMAP H13). With
+    `guard_in_front` (the monocular pipeline's BAs) an LM step is accepted
+    only if it keeps every observation that is in the cost; the JAX
+    package has no such rule, and the other pipelines keep its LM as it
+    is."""
     dt = prob.points.dtype
     dev = prob.points.device
 
     def cost_at(poses, points):
+        """(cost, number of observations in the cost, counted only with
+        the guard)."""
         r, _, _, row_mask = _residuals(cam, poses, points, prob)
-        return _robust_cost_and_weights(r, row_mask, prob, use_huber)[2]
+        cost = _robust_cost_and_weights(r, row_mask, prob, use_huber)[2]
+        return cost, torch.sum(row_mask[..., 0]) if guard_in_front else None
 
     poses, points = prob.poses, prob.points
     costs = []
@@ -253,13 +268,17 @@ def _ba_core(cam: CameraParams, prob: BAProblem, iters: int, use_huber: bool, la
             costs.append(cost)
     else:
         lam = torch.full((), lam0, dtype=dt, device=dev)
-        cost = init_cost = cost_at(poses, points)
+        cost, n_obs = cost_at(poses, points)
+        init_cost = cost
         for _ in range(iters):
             dxc, dxp = _build_and_solve(cam, poses, points, prob, lam, use_huber, assembly)
             cand_poses = se3.retract_left(poses, dxc)
             cand_points = points + dxp
-            cand_cost = cost_at(cand_poses, cand_points)
+            cand_cost, cand_n_obs = cost_at(cand_poses, cand_points)
             accept = cand_cost < cost
+            if guard_in_front:
+                accept = accept & (cand_n_obs >= n_obs)
+                n_obs = torch.where(accept, cand_n_obs, n_obs)
             poses = SE3(torch.where(accept, cand_poses.R, poses.R),
                         torch.where(accept, cand_poses.t, poses.t))
             points = torch.where(accept, cand_points, points)
@@ -278,8 +297,11 @@ def _ba_core(cam: CameraParams, prob: BAProblem, iters: int, use_huber: bool, la
 
 
 def bundle_adjust(cam: CameraParams, prob: BAProblem, iters: int = 10, use_huber: bool = True,
-                  lam0: float = 1e-4, assembly: str = "dense") -> BAResult:
+                  lam0: float = 1e-4, assembly: str = "dense",
+                  guard_in_front: bool = False) -> BAResult:
     """Levenberg-Marquardt bundle adjustment over poses and points; fixed
     cameras and invalid points and observations are masked out. Use
-    assembly="scatter" for whole-map problems."""
-    return _ba_core(cam, prob, iters, use_huber, lam0, assembly=assembly)
+    assembly="scatter" for whole-map problems; `guard_in_front`: see
+    `_ba_core`."""
+    return _ba_core(cam, prob, iters, use_huber, lam0, assembly=assembly,
+                    guard_in_front=guard_in_front)

@@ -474,11 +474,13 @@ class StereoVO:
                 mstate, torch.where(create, ids, torch.full_like(ids, M - 1)))
         return mstate
 
-    def _local_ba_program(self, mstate, ref_slot: int):
+    def _local_ba_program(self, mstate, ref_slot: int, guard_in_front: bool = False):
         """Local BA over the covisibility window of `ref_slot`. The origin
         keyframe and the oldest third of the window are fixed. Returns
         (map, delta) with delta = inv(T_ref before) @ T_ref after, the
-        right-multiplicative correction of the live pose chain."""
+        right-multiplicative correction of the live pose chain.
+        `guard_in_front`: see `optim/local_ba.py::_ba_core` (off, as in
+        the JAX package, but for the monocular pipeline)."""
         ba_cfg = self.cfg.ba
         window = steps.covis_window(mstate, ref_slot, ba_cfg.max_local_kfs)
         alive = window >= 0
@@ -492,7 +494,8 @@ class StereoVO:
             self.cam, mstate, window, fixed, mp_ids, n_window=ba_cfg.max_local_kfs,
             n_points=ba_cfg.max_local_points, n_obs=self.cfg.map.max_obs_per_point,
         )
-        res = local_ba._ba_core(self.cam, prob, ba_cfg.local_ba_iters, True, 1e-4)
+        res = local_ba._ba_core(self.cam, prob, ba_cfg.local_ba_iters, True, 1e-4,
+                                guard_in_front=guard_in_front)
         r1 = map_state.dev_index(ref_slot, self.device)
         ref_pre = SE3(mstate.kf_R[r1][0], mstate.kf_t[r1][0])  # copies
         mstate = steps.scatter_ba_result(mstate, window, fixed, mp_ids, res.poses, res.points)

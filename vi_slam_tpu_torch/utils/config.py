@@ -179,6 +179,12 @@ class SystemConfig:
         return dataclasses.replace(self, **kw)
 
 
+def kitti00_mono() -> SystemConfig:
+    """The monocular KITTI-00 preset: the default camera without a
+    baseline."""
+    return SystemConfig(sensor=Sensor.MONOCULAR, camera=CameraConfig(bf=0.0))
+
+
 _SECTIONS = {
     "camera": CameraConfig, "extractor": ExtractorConfig,
     "matcher": MatcherConfig, "tracker": TrackerConfig, "ba": BAConfig,
