@@ -3,6 +3,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --ate [--klt] [--perturb SEED ...] [--flush-at N]
     python3 chip_smoke.py --mono [--repeat N] [--perturb SEED ...]
+    python3 chip_smoke.py --mono-inertial [--seeds SEED ...]
 
 The second form is not the check: it runs the full phase's loop (with
 `--klt`, the klt phase's) alone, unperturbed and once per seed with 20
@@ -10,18 +11,22 @@ pixels of each left image moved by one grey level, and prints one JSON
 line a run (the port's ATE spread). The third runs the mono phase's run
 alone after its worker's warm-up: on the unperturbed left images N times
 (`--repeat`) and once per `--perturb` seed, one JSON line a run with its
-numbers and the per-run gates' verdict; it is not the check either.
+numbers and the per-run gates' verdict; it is not the check either. The
+fourth runs the mono-inertial phase's oracle run (the reference's
+two-view key 3, and once per `--seeds` key) and image run alone, one JSON
+line a run with its gates' verdict; not the check either.
 
 Needs one CUDA card, `nvcc` and `nvidia-smi`; imports nothing of JAX or of
 the JAX package. The frames are rendered in a pool of worker processes
-(`multiprocessing`, spawned, stopped on the way out). It runs thirteen
+(`multiprocessing`, spawned, stopped on the way out). It runs fourteen
 phases in order and prints one line per phase with its seconds, flushed
 as the phase ends (and a `render` line for the first 120 frames of
 bench.py's 200-frame world, which the full, klt and rgbd phases share).
 The vio-smoother and mono phases run each in a worker process of its
 own, which warms up its first solves on the card while the first phases
 run (the smoother's: an inertial initialization and a smoother step; the
-mono phase's: a two-view solve and a whole-map BA), and a second `render`
+mono phase's: a two-view solve and a whole-map BA), the mono-inertial
+phase's runs after the mono phase in both workers, and a second `render`
 line reports the vio phase's world, rendered after the build phase:
 
   device  the card's name and `nvidia-smi` name and power limit;
@@ -155,6 +160,45 @@ line reports the vio phase's world, rendered after the build phase:
           and the host ms inside them (each a wait for the card), the Horn
           scale, steady frames/s and the host ms of a keyframe's
           triangulation.
+  mono-inertial
+          `MonoInertialVO`: an oracle run, `process_oracle_mono_inertial` over
+          tests/test_mono_inertial.py's world (oracle features with 0.3 px
+          noise at 640x480, `make_inertial_world(60, 10 fps, 8000
+          landmarks, seed 3, excitation 4.0)`, 200 Hz IMU) at that test's
+          configuration, and an image run, `process_mono_inertial` over the
+          left images and IMU stream of the vio phase's world at
+          tools/bench_vio.py's configuration with sensor=IMU_MONOCULAR and
+          bf 0. Both draw the two-view samples from the reference's own
+          stream (`KeySampler(3)`, its PRNGKey(3)). The oracle run goes
+          five times (three in the vio-smoother phase's worker before
+          that phase, queued when the mono phase ends; two in the mono
+          worker after its five mono runs): where it ends is a draw of the
+          card's float32 sums, which atomics make differ from run to run
+          (ROADMAP F15). The mono worker's first run goes under
+          torch.use_deterministic_algorithms, and so is the same run on
+          every call; the phase fails unless it follows the reference
+          run's course: the initialization within 2 frames of the
+          reference's (1), a finite trajectory with one pose a frame,
+          imu_ready and the reference's last stage (2), each stage within
+          3 frames of the reference's (20, 53), both counted from the
+          initialization (a stage runs on the first keyframe once the
+          chain spans its seconds, and a keyframe comes at least every 4
+          frames), every frame tracked after the initialization, the
+          inertial initialization, whole-chain and window VI BAs, mapping
+          and local BA run; and unless it meets tests/test_mono_inertial.py's
+          limits, as the reference's run does: Horn scale within 2 % of 1,
+          unscaled ATE under 25 cm, gravity within 2 deg. Every oracle run
+          fails the phase on a pose that is not finite; the other four
+          runs' course and limits are printed. The image
+          run fails unless K1 launches once a frame, it initializes within
+          2 frames of the reference's (1), reaches imu_ready with its first
+          stage within 3 frames of the reference's (21), counted as above,
+          and keeps a finite trajectory (it runs in the mono worker after
+          the oracle runs); its lost frames, scale, ATE and gravity are printed
+          beside the reference's, which loses track at that stage. It
+          prints the applied scale of each stage, the host ms of the
+          inertial track a frame, steady frames/s and the card's
+          `nvidia-smi` name and power limit.
   klt     bench.py --frontend klt: bench.py's configuration with the KLT
           track-then-redetect frontend over the first 60 frames of
           bench.py's world, drained before frame 10. It fails on a lost
@@ -181,8 +225,9 @@ line reports the vio phase's world, rendered after the build phase:
 Any failure raises and the script exits non-zero with the traceback. On
 success it prints the `nvidia-smi` line, a JSON line of per-kernel
 measurements ("launches" is the full phase's count, "launches_by_phase"
-adds the vio-smoother, klt, rgbd and mono phases'; "ms", "plain_ms" and "bound_ms" are device
-times for the 8-level left pyramid of frame 0), and last a JSON line
+adds the vio-smoother, klt, rgbd, mono and mono-inertial phases'; "ms",
+"plain_ms" and "bound_ms" are device times for the 8-level left pyramid
+of frame 0), and last a JSON line
 {"ok": true, "device": {...}}.
 """
 
@@ -322,6 +367,38 @@ REF_MONO = dict(ate_cm=3.8019256296391046, horn_scale=23.147696959919436, init_f
                 perturbed_ate_cm={1: 2.651133143321288, 2: 3.486651064499434,
                                   3: 7.120393393941872, 4: 4.0630597160728})
 REF_MONO_COMMIT = "822208b0e82cece903c05e46c845ac8b2ae793c8"
+
+# The same for the mono-inertial phase (accuracy figures, not speeds), both
+# runs synchronous, so no drain applies. The oracle run: `python
+# tools/slice_reference_ate.py --mono-inertial --oracle --frames 60`:
+# MonoInertialVO over tests/test_mono_inertial.py's world at its
+# configuration, which meets every limit of that test. The image run:
+# `... --mono-inertial --frames 60`: over the left images and IMU stream of
+# tools/bench_vio.py's world at its configuration with sensor=IMU_MONOCULAR
+# and bf=0, where the reference's first stage applies a scale of 0.042 and
+# tracking is lost from the next frame on (ROADMAP H16). Stage frames are
+# the frames whose keyframe ran the stage; the ATEs are over the OK frames.
+REF_MI_ORACLE = dict(init_frame=1, not_ok_after_init=0, imu_ready=True, init_stage=2,
+                     init_stage_frames=[20, 53],
+                     applied_scales=[15.050155639648438, 1.003909945487976],
+                     horn_scale=0.9986560007464932, scaled_ate_cm=4.428518015532757,
+                     unscaled_ate_cm=4.443284204676447, gravity_angle_deg=0.1849130545422118,
+                     keyframes=18, map_points=2306,
+                     programs=dict(mapping=16, local_ba=5, maintenance=15, inertial_init=2,
+                                   full_inertial_ba=2, vi_local_ba=11, track_vio=39))
+REF_MI_IMAGE = dict(init_frame=1, not_ok_after_init=38, imu_ready=True, init_stage=1,
+                    init_stage_frames=[21], applied_scales=[0.04225722327828407],
+                    horn_scale=528.1506213890839, scaled_ate_cm=1.297491064824696,
+                    unscaled_ate_cm=85.78197338638607, gravity_angle_deg=0.37647617464980965,
+                    keyframes=9, map_points=857,
+                    programs=dict(mapping=3, local_ba=3, inertial_init=1, full_inertial_ba=1,
+                                  track_vio=38))
+REF_MI_COMMIT = "b63510fd292c2425d0abe73bc9456971fc4cec4a"
+# The reference over the oracle world with other two-view keys (`python
+# tools/torch_parity_report.py --mono-inertial-seeds --frames 60`, the same
+# commit): with keys 103, 203, 303 and 403 it loses its map within the first
+# frames and reaches no stage, so the figures above hold for key 3 alone;
+# the port draws key 3's samples (KeySampler) and is held to them.
 
 # KITTI-00 stereo geometry and the slice world (bench.py's).
 W, H = 1241, 376
@@ -1112,6 +1189,318 @@ def mono_phase(iw, frames):
     return r
 
 
+# tests/test_mono_inertial.py's world and configuration: the mono-inertial
+# phase's oracle run
+MI_W, MI_H, MI_F = 640, 480, 500.0
+MI_FRAMES = 60
+MI_STEADY_FROM = 10  # its frames/s is counted from this frame on
+MI_PROGRAMS = ("inertial_init", "vi_local_ba", "full_inertial_ba", "mapping", "local_ba")
+# The oracle run is repeated: its scale and ATE are a draw of the float32
+# summation order (ROADMAP F15), which varies from run to run on the card
+# where atomics sum. The mono worker's first run is the gated one: with
+# torch.use_deterministic_algorithms it is the same run, bit for bit, on
+# every call.
+MI_ORACLE_RUNS = 5
+MI_VIO_WORKER_RUNS = 3  # of them in the vio worker, idle until its vio-smoother phase
+# cuBLAS is deterministic under torch.use_deterministic_algorithms only with
+# this set before its first call in the process
+CUBLAS_DETERMINISTIC = ("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+# tests/test_mono_inertial.py's limits, which the reference meets
+MI_HORN_TOL, MI_ATE_LIMIT_CM, MI_GRAVITY_LIMIT_DEG = 0.02, 25.0, 2.0
+
+
+def mono_inertial_config(oracle: bool):
+    """With `oracle`, tests/test_mono_inertial.py's configuration (640x480,
+    1200 features, a keyframe at least every 4 frames, local BA at every
+    keyframe); else tools/bench_vio.py's with sensor=IMU_MONOCULAR and no
+    baseline."""
+    import dataclasses
+
+    from vi_slam_tpu_torch.utils.config import (
+        BAConfig, CameraConfig, ExtractorConfig, IMUConfig, MapConfig, Sensor, SystemConfig,
+        TrackerConfig,
+    )
+
+    if not oracle:
+        cfg = vio_config()
+        return dataclasses.replace(cfg, sensor=Sensor.IMU_MONOCULAR,
+                                   camera=dataclasses.replace(cfg.camera, bf=0.0))
+    return SystemConfig(
+        sensor=Sensor.IMU_MONOCULAR,
+        camera=CameraConfig(width=MI_W, height=MI_H, fx=MI_F, fy=MI_F, cx=MI_W / 2, cy=MI_H / 2,
+                            bf=0.0, fps=10.0),
+        extractor=ExtractorConfig(n_features=1200),
+        ba=BAConfig(max_local_kfs=8, max_local_points=2048, local_ba_iters=6, inertial_window=8),
+        map=MapConfig(max_keyframes=128, max_points=32768, max_obs_per_point=8),
+        imu=IMUConfig(freq=200.0),
+        tracker=TrackerConfig(max_frames_between_kf=4),
+    )
+
+
+def mono_inertial_oracle_world():
+    """tests/test_mono_inertial.py's world: (InertialWorld, oracle frames
+    with 0.3 px noise)."""
+    from vi_slam_tpu_torch.io import synthetic
+
+    iw = synthetic.make_inertial_world(n_frames=MI_FRAMES, fps=10.0, n_landmarks=8000, seed=3,
+                                       excitation=4.0)
+    frames = [synthetic.render_oracle_frame(iw.world, i, MI_F, MI_F, MI_W / 2, MI_H / 2, 250.0,
+                                            MI_W, MI_H, max_features=1000, px_noise=0.3)
+              for i in range(MI_FRAMES)]
+    return iw, frames
+
+
+def mono_inertial_run(iw, frames, oracle: bool, seed: int = 3, deterministic: bool = False):
+    """MonoInertialVO over `frames` of the world `iw` with its IMU stream:
+    with `oracle`, oracle features through `process_oracle_mono_inertial`,
+    else the left images of stereo pairs through `process_mono_inertial`
+    (K1 once a frame). The two-view draws are the reference's stream with
+    key `seed` (`KeySampler`; the pipeline's default is key 3). With
+    `deterministic`, under torch.use_deterministic_algorithms (the process
+    must have CUBLAS_DETERMINISTIC set). K1's launch count is set to 0 just
+    before and read just after. Returns the run's numbers."""
+    import torch
+    from vi_slam_tpu_torch.io import evaluation
+    from vi_slam_tpu_torch.ops import fast_kernel
+    from vi_slam_tpu_torch.pipeline.vio import MonoInertialVO
+    from vi_slam_tpu_torch.utils.sampling import KeySampler
+
+    t0 = time.perf_counter()
+    vo = MonoInertialVO(mono_inertial_config(oracle), draw=KeySampler(seed))
+    scales = []
+    apply_scale = vo._apply_map_scale
+
+    def applied(s):
+        scales.append(float(s))
+        return apply_scale(s)
+
+    vo._apply_map_scale = applied
+    n = len(frames)
+    fast_kernel.reset_launches()
+    torch.use_deterministic_algorithms(deterministic)
+    try:
+        for i in range(n):
+            if i == MI_STEADY_FROM:
+                torch.cuda.synchronize()
+                t_steady = time.perf_counter()
+            if oracle:
+                fr = frames[i]
+                vo.process_oracle_mono_inertial(fr.xy, fr.desc, fr.level, iw.imu_per_frame[i],
+                                                iw.timestamps[i])
+            else:
+                vo.process_mono_inertial(frames[i][0], iw.imu_per_frame[i], iw.timestamps[i])
+        vo.flush()
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    t_end = time.perf_counter()
+    launches = fast_kernel.launches
+    states = [r.state for r in vo.records]
+    first_ok = states.index("OK") if "OK" in states else None
+    est = vo.trajectory_wc()
+    ok = [i for i, st in enumerate(states) if st == "OK"]
+    nan = {"rmse": float("nan"), "scale": float("nan")}
+    gt = iw.world.poses_wc[ok, :3, 3]
+    scaled = evaluation.ate_rmse(est[ok, :3, 3], gt, with_scale=True) if len(ok) >= 3 else nan
+    unscaled = evaluation.ate_rmse(est[ok, :3, 3], gt) if len(ok) >= 3 else nan
+    g = vo.g_w_dev.cpu().numpy().astype(np.float64)
+    cos = g @ iw.gravity_w / max(np.linalg.norm(g) * np.linalg.norm(iw.gravity_w), 1e-12)
+    runs = dict(vo.program_runs)
+    return dict(
+        seconds=time.perf_counter() - t0, seed=seed, deterministic=deterministic, frames=n,
+        states="".join(x[0] for x in states),
+        init_frame=first_ok, not_ok_after_init=None if first_ok is None else sum(
+            1 for st in states[first_ok:] if st != "OK"),
+        lost_after_bootstrap=states[2:].count("LOST"), finite=bool(np.all(np.isfinite(est))),
+        shape_ok=est.shape == (n, 4, 4), imu_ready=bool(vo.imu_ready),
+        init_stage=int(vo._init_stage), stage_frames=list(vo.init_stage_frames),
+        applied_scales=scales, horn_scale=scaled["scale"], scaled_ate_cm=scaled["rmse"] * 100.0,
+        unscaled_ate_cm=unscaled["rmse"] * 100.0,
+        gravity_deg=float(np.degrees(np.arccos(np.clip(cos, -1.0, 1.0)))),
+        keyframes=vo.n_kf, map_points=vo.n_mp, two_view=vo.init_result, launches=launches,
+        runs=runs, host_ms={k: v * 1e3 for k, v in vo.program_host_s.items()},
+        track_vio_ms=vo.program_host_s.get("track_vio", 0.0) * 1e3
+        / max(runs.get("track_vio", 0), 1),
+        steady_fps=(n - MI_STEADY_FROM) / (t_end - t_steady),
+    )
+
+
+def stages_on_time(r, ref, n: int) -> bool:
+    """Whether run `r` has at least `n` stages and each of its first `n`
+    came within 3 frames of the reference's, both counted from their
+    initialization frames. A stage runs on the first keyframe once the
+    keyframe chain spans its seconds from the map's first keyframe (the
+    held frame, one before the initialization), and a keyframe comes at
+    least every 4 frames, so a stage's frame follows the initialization's
+    and moves with the cadence's phase by up to 3."""
+    got, want = r["stage_frames"], ref["init_stage_frames"]
+    return len(got) >= n and all(
+        abs((a - r["init_frame"]) - (b - ref["init_frame"])) <= 3 for a, b in zip(got[:n], want))
+
+
+def check_mono_inertial_oracle(r) -> None:
+    """Raises if the oracle run `r` launched K1 (it extracts nothing) or
+    left a pose that is not finite."""
+    if r["launches"] != 0:
+        raise AssertionError(f"oracle run: K1 launched {r['launches']} times on oracle features")
+    if not r["finite"]:
+        raise AssertionError(f"oracle run: a pose is not finite (states {r['states']})")
+
+
+def mono_inertial_misses(r) -> list:
+    """What of the reference run's course the oracle run `r` misses: the
+    initialization within 2 frames of the reference's, a finite trajectory
+    with one pose a frame (a run that loses its map is reset, and its
+    records with it), `imu_ready` and the reference's last stage with each
+    stage on time, every frame tracked after the initialization, each
+    program of MI_PROGRAMS that the reference ran. Empty where it follows
+    it."""
+    ref = REF_MI_ORACLE
+    misses = []
+    if r["init_frame"] is None or abs(r["init_frame"] - ref["init_frame"]) > 2:
+        return [f"initialized at frame {r['init_frame']} (states {r['states']})"]
+    if not (r["finite"] and r["shape_ok"]):
+        misses.append("trajectory not finite or not one pose a frame")
+    if (not r["imu_ready"] or r["init_stage"] != ref["init_stage"]
+            or not stages_on_time(r, ref, len(ref["init_stage_frames"]))):
+        misses.append(f"stage {r['init_stage']} at frames {r['stage_frames']}")
+    if r["not_ok_after_init"] != ref["not_ok_after_init"]:
+        misses.append(f"{r['not_ok_after_init']} frames not tracked")
+    idle = [k for k in MI_PROGRAMS if ref["programs"].get(k, 0) > 0 and r["runs"].get(k, 0) <= 0]
+    if idle:
+        misses.append(f"programs not run {idle}")
+    return misses
+
+
+def mono_inertial_off_limits(r) -> list:
+    """tests/test_mono_inertial.py's limits that the oracle run `r`
+    misses (Horn scale within 2 % of 1, unscaled ATE under 25 cm, gravity
+    within 2 deg); the reference's run meets them all."""
+    off = []
+    if not abs(r["horn_scale"] - 1.0) < MI_HORN_TOL:
+        off.append(f"Horn scale {r['horn_scale']:.5f}")
+    if not r["unscaled_ate_cm"] < MI_ATE_LIMIT_CM:
+        off.append(f"unscaled ATE {r['unscaled_ate_cm']:.4f} cm")
+    if not r["gravity_deg"] < MI_GRAVITY_LIMIT_DEG:
+        off.append(f"gravity {r['gravity_deg']:.4f} deg")
+    return off
+
+
+def check_mono_inertial_runs(runs) -> None:
+    """Each oracle run's own gates (`check_mono_inertial_oracle`), then
+    that the deterministic run follows the reference run's course
+    (`mono_inertial_misses`) and meets tests/test_mono_inertial.py's limits
+    (`mono_inertial_off_limits`). Where the other runs end is a draw of the
+    card's sums (F15): printed, not gated."""
+    for i, r in enumerate(runs):
+        try:
+            check_mono_inertial_oracle(r)
+        except AssertionError as e:
+            raise AssertionError(f"oracle run {i} of {len(runs)}: {e}") from None
+    det = [r for r in runs if r["deterministic"]]
+    if len(det) != 1:
+        raise AssertionError(f"{len(det)} deterministic oracle runs, expected one")
+    bad = mono_inertial_misses(det[0]) + mono_inertial_off_limits(det[0])
+    if bad:
+        raise AssertionError(f"deterministic oracle run: {bad} (states {det[0]['states']},"
+                             f" applied scales {det[0]['applied_scales']})")
+
+
+def check_mono_inertial_image(r) -> None:
+    """Raises unless the image run `r` launched K1 once a frame,
+    initialized within 2 frames of the reference, reached `imu_ready` with
+    its first stage on time (`stages_on_time`), and kept a finite
+    trajectory. (The reference loses track at its first stage on this
+    world: its lost frames, scale, ATE and gravity are printed, not
+    gated.)"""
+    ref = REF_MI_IMAGE
+    if r["launches"] != r["frames"]:
+        raise AssertionError(f"image run: K1 launched {r['launches']} times for {r['frames']}"
+                             " frames, expected one a frame")
+    if not (r["finite"] and r["shape_ok"]):
+        raise AssertionError("image run: trajectory not finite or of the wrong shape")
+    if r["init_frame"] is None or abs(r["init_frame"] - ref["init_frame"]) > 2:
+        raise AssertionError(f"image run: initialized at frame {r['init_frame']}, the reference"
+                             f" at {ref['init_frame']}")
+    if not r["imu_ready"] or not stages_on_time(r, ref, 1):
+        raise AssertionError(f"image run: imu_ready {r['imu_ready']}, stages at"
+                             f" {r['stage_frames']} (init at {r['init_frame']}); the reference's"
+                             f" first at {ref['init_stage_frames'][0]} (init at"
+                             f" {ref['init_frame']})")
+
+
+def mono_inertial_oracle_runs(n: int, deterministic_first: bool = False):
+    """`n` oracle runs over tests/test_mono_inertial.py's world, the first
+    with `deterministic_first` under torch.use_deterministic_algorithms
+    (each run's numbers; the gates are the parent's)."""
+    iw, frames = mono_inertial_oracle_world()
+    return [mono_inertial_run(iw, frames, oracle=True, deterministic=deterministic_first and i == 0)
+            for i in range(n)]
+
+
+def mono_inertial_phase(vio_iw, vio_frames, n_oracle: int):
+    """The mono-inertial phase's share in the mono phase's worker after
+    its runs: `n_oracle` oracle runs, the first deterministic, then the
+    image run over the left images and IMU stream of the vio phase's world
+    (its gates checked here)."""
+    t0 = time.perf_counter()
+    oracle = mono_inertial_oracle_runs(n_oracle, deterministic_first=True)
+    image = mono_inertial_run(vio_iw, vio_frames, oracle=False)
+    check_mono_inertial_image(image)
+    return dict(oracle=oracle, image=image, phase_s=time.perf_counter() - t0)
+
+
+def mono_inertial_line(mi, smi: str) -> str:
+    """The mono-inertial phase's line: each run's numbers beside the
+    reference's, with the card."""
+
+    def run(r, ref):
+        prog = ", ".join(f"{k} {r['runs'].get(k, 0)} (reference {ref['programs'].get(k, 0)})"
+                         for k in MI_PROGRAMS)
+        return (f"init at frame {r['init_frame']} (reference {ref['init_frame']}), two-view"
+                f" {r['two_view']} | imu_ready {r['imu_ready']}, stage {r['init_stage']} at frames"
+                f" {r['stage_frames']} (reference {ref['init_stage']} at"
+                f" {ref['init_stage_frames']}), applied scales {fmt_list(r['applied_scales'])}"
+                f" (reference {fmt_list(ref['applied_scales'])}) | frames not tracked after the"
+                f" initialization {r['not_ok_after_init']} (reference {ref['not_ok_after_init']})"
+                f" | Horn scale {r['horn_scale']:.5f} (reference {ref['horn_scale']:.5f})"
+                f" | unscaled ATE {r['unscaled_ate_cm']:.4f} cm (reference"
+                f" {ref['unscaled_ate_cm']:.4f}), scale-aligned {r['scaled_ate_cm']:.4f} cm"
+                f" (reference {ref['scaled_ate_cm']:.4f}) | gravity {r['gravity_deg']:.4f} deg"
+                f" from the truth (reference {ref['gravity_angle_deg']:.4f}) | keyframes"
+                f" {r['keyframes']} (reference {ref['keyframes']}), map points {r['map_points']}"
+                f" (reference {ref['map_points']}) | runs: {prog} | host ms of the inertial track"
+                f" (track_vio) a frame {r['track_vio_ms']:.2f} over {r['runs'].get('track_vio', 0)}"
+                f" frames | steady {r['steady_fps']:.3f} frames/s (from"
+                f" frame {MI_STEADY_FROM}) | {r['seconds']:.2f} s | fast_resp_pref launches"
+                f" {r['launches']} for {r['frames']} frames")
+
+    runs = mi["oracle"]
+    follow = [i for i, r in enumerate(runs) if not mono_inertial_misses(r)]
+    met = [i for i in follow if not mono_inertial_off_limits(runs[i])]
+    det = [i for i, r in enumerate(runs) if r["deterministic"]]
+    per_run = " | ".join(
+        f"run {i}{' (deterministic)' if r['deterministic'] else ''}: states {r['states']},"
+        f" stages at {r['stage_frames']}, applied"
+        f" {fmt_list(r['applied_scales'])}, Horn {r['horn_scale']:.5f}, unscaled ATE"
+        f" {r['unscaled_ate_cm']:.4f} cm, gravity {r['gravity_deg']:.4f} deg, two-view"
+        f" {r['two_view']}, {r['seconds']:.2f} s, misses"
+        f" {mono_inertial_misses(r) + mono_inertial_off_limits(r) or 'none'}"
+        for i, r in enumerate(runs))
+    return (f"MonoInertialVO with the reference's two-view draws (key 3), {len(runs)} oracle runs"
+            f" ({MI_VIO_WORKER_RUNS} in the vio worker before its vio-smoother phase, the rest"
+            f" and the image run in the mono worker after its runs: {mi['phase_s']:.2f} s) | card"
+            f" {smi} | reference at {REF_MI_COMMIT[:7]} | oracle runs (tests/test_mono_inertial.py's"
+            f" world, {MI_FRAMES} frames, process_oracle_mono_inertial): {len(follow)} of"
+            f" {len(runs)} follow the reference's course (runs {follow}), {len(met)} of them within"
+            f" tests/test_mono_inertial.py's limits as the reference (runs {met}; gated: the"
+            f" deterministic run {det}, every run's poses finite; F15) | {per_run}"
+            f" | the deterministic run in full: {run(runs[det[0]], REF_MI_ORACLE) if det else None}"
+            f" | image run (the left images and IMU of tools/bench_vio.py's world,"
+            f" {VIO_FRAMES} frames, process_mono_inertial; lost frames, scale, ATE and gravity"
+            f" not gated): {run(mi['image'], REF_MI_IMAGE)}")
+
+
 def train_loop_vocabulary(cfg, frames):
     """bench.py's vocabulary, trained on the card: the port's ORB
     descriptors of every (frames // 10)-th left image, k=8, 3 levels, 4
@@ -1426,6 +1815,47 @@ def mono_alone(seeds=(), repeat: int = 1) -> None:
                           "device": torch.cuda.get_device_name(0)}, default=str), flush=True)
 
 
+def mono_inertial_alone(seeds=(), deterministic: bool = False) -> None:
+    """The mono-inertial phase's runs by themselves: build the kernels,
+    warm up as the mono worker does, then the oracle run with the two-view
+    sampler seeded 3 and each of `seeds` (with `deterministic` under
+    torch.use_deterministic_algorithms), and the image run over the vio
+    phase's world; one JSON line a run, with "failed" where its gates
+    refuse it (the next run goes on)."""
+    import torch
+    from vi_slam_tpu_torch.kernels import build as kbuild
+
+    kbuild.build()
+    kbuild.load_library()
+    t0 = time.perf_counter()
+    warm_mono_worker()
+    warm_s = time.perf_counter() - t0
+    ctx = multiprocessing.get_context("spawn")
+    pool = ctx.Pool(min(8, os.cpu_count() or 1))
+    try:
+        vio_iw, vio_frames = vio_world(pool)
+    finally:
+        pool.terminate()
+        pool.join()
+    iw, frames = mono_inertial_oracle_world()
+    runs = [(True, s) for s in [3] + list(seeds)] + [(False, 3)]
+    for oracle, seed in runs:
+        r = None
+        try:
+            if oracle:
+                r = mono_inertial_run(iw, frames, oracle=True, seed=seed,
+                                      deterministic=deterministic)
+                r["misses"] = mono_inertial_misses(r) + mono_inertial_off_limits(r)
+                check_mono_inertial_oracle(r)
+            else:
+                r = mono_inertial_run(vio_iw, vio_frames, oracle=False, seed=seed)
+                check_mono_inertial_image(r)
+        except AssertionError as e:  # a run the phase would refuse: report it, go on
+            r = {"failed": str(e), **({} if r is None else r)}
+        print(json.dumps({"run": "oracle" if oracle else "image", "warm_s": warm_s, **r,
+                          "device": torch.cuda.get_device_name(0)}, default=str), flush=True)
+
+
 def ate_runs(seeds, flush_at, klt: bool = False) -> None:
     """The full phase's loop alone (with `klt`, the klt phase's),
     unperturbed and once per perturbation seed, with the pipeline drained
@@ -1473,6 +1903,15 @@ def main(argv) -> int:
                     help="run only the mono phase and print its numbers (not the check)")
     ap.add_argument("--repeat", type=int, default=1, metavar="N",
                     help="with --mono: run the unperturbed frames N times")
+    ap.add_argument("--mono-inertial", action="store_true",
+                    help="run only the mono-inertial phase's runs and print their numbers (not"
+                         " the check)")
+    ap.add_argument("--seeds", type=int, nargs="*", default=[], metavar="SEED",
+                    help="with --mono-inertial: also one oracle run per two-view key (the"
+                         " reference's PRNGKey(SEED) stream)")
+    ap.add_argument("--deterministic", action="store_true",
+                    help="with --mono-inertial: the oracle runs under"
+                         " torch.use_deterministic_algorithms")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke test needs a GPU",
@@ -1483,6 +1922,9 @@ def main(argv) -> int:
         return 0
     if args.mono:
         mono_alone(args.perturb, args.repeat)
+        return 0
+    if args.mono_inertial:
+        mono_inertial_alone(args.seeds, args.deterministic)
         return 0
     # the frames of every phase are rendered in worker processes, and the
     # vio-smoother phase runs in a worker of its own, warmed up from the
@@ -1528,7 +1970,9 @@ def warm_mono_worker() -> None:
     """The mono phase's worker at its start: a process's first SVDs and
     whole-map BA on the card set up the card's linear-algebra libraries; a
     two-view solve on a small general scene and two BA iterations over it
-    run here, while the parent runs the first phases."""
+    run here, while the parent runs the first phases. cuBLAS is set up for
+    the deterministic mono-inertial run first."""
+    os.environ.setdefault(*CUBLAS_DETERMINISTIC)
     import torch
     from vi_slam_tpu_torch.cameras.base import CameraParams
     from vi_slam_tpu_torch.geometry import two_view
@@ -1594,9 +2038,17 @@ def check(pool, vio_pool, mono_pool) -> int:
     # runs on its left images beside the slice and later phases
     t0 = time.perf_counter()
     vio_iw, vio_frames = vio_world(pool)
-    mono_pending = mono_pool.apply_async(mono_phase, (vio_iw, vio_frames))
+    # the vio worker's share of the mono-inertial oracle runs is queued when
+    # the mono phase ends, so that the mono phase runs beside the earlier
+    # phases alone, as before that phase existed
+    mi_vio = []
+    mono_pending = mono_pool.apply_async(
+        mono_phase, (vio_iw, vio_frames), callback=lambda _: mi_vio.append(
+            vio_pool.apply_async(mono_inertial_oracle_runs, (MI_VIO_WORKER_RUNS,))))
+    mi_pending = mono_pool.apply_async(mono_inertial_phase,
+                                       (vio_iw, vio_frames, MI_ORACLE_RUNS - MI_VIO_WORKER_RUNS))
     log_phase("render", t0, f"| tools/bench_vio.py's world, {VIO_FRAMES} stereo pairs at {W}x{H}"
-              " (the vio, vio-smoother and mono phases')")
+              " (the vio, vio-smoother, mono and mono-inertial phases')")
 
     world = synthetic.make_billboard_world(n_frames=SLICE_WORLD_FRAMES, n_boards=4000, seed=11,
                                            speed=1.0)
@@ -1787,6 +2239,13 @@ def check(pool, vio_pool, mono_pool) -> int:
               f" {mo['launches']} for {mo['frames']} frames")
 
     t0 = time.perf_counter()
+    mi = mi_pending.get(timeout=900)
+    mi["oracle"] = mi_vio[0].get(timeout=900) + mi["oracle"]
+    log_phase("mono-inertial", t0,
+              f"(the wait after the mono phase) | {mono_inertial_line(mi, smi)}")
+    check_mono_inertial_runs(mi["oracle"])
+
+    t0 = time.perf_counter()
     kl = phase_klt(bench_world, bench_frames, pool)
     ref = REF_KLT
     host = ", ".join(f"{k} {v:.2f}" for k, v in kl["host_ms"].items())
@@ -1836,7 +2295,8 @@ def check(pool, vio_pool, mono_pool) -> int:
         "launches": full["launches"],
         "launches_by_phase": {"full": full["launches"], "vio-smoother": vs["launches"],
                               "klt": kl["launches"], "rgbd": rg["launches"],
-                              "mono": mo["launches"]},
+                              "mono": mo["launches"],
+                              "mono-inertial": mi["image"]["launches"]},
         "max_abs_err": max(r["err"] for r in rows),
         "ms": kern["ms"],
         "plain_ms": kern["plain_ms"],

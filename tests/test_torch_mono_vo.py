@@ -475,11 +475,12 @@ def test_ba_guard_keeps_the_map_in_front():
     port fed the reference's two-view draws), with an initial damping of
     1e-8, steps along the scale gauge through zero: the map ends mirrored
     behind both cameras, every observation out of the cost, cost 0. With
-    the monocular guard (guard_in_front) no step may take an observation
-    out: every observation stays, the map in front, at the default
-    damping's cost (rtol 1e-4). (At 1e-6, 1e-7, 1e-9 and 1e-10 the same
-    problem does not mirror: where LM lands along the gauge is a matter of
-    rounding, ROADMAP F14.)"""
+    the monocular guard (guard_in_front) no step may take half of the
+    observations out: every observation stays, the map in front, at the
+    default damping's cost (rtol 1e-4). At the default damping, where no
+    step mirrors, the guard changes nothing. (At 1e-6, 1e-7, 1e-9 and
+    1e-10 the same problem does not mirror: where LM lands along the gauge
+    is a matter of rounding, ROADMAP F14.)"""
     _, frames = mono_frames(2)
     vo = mono_vo.MonoVO(port_cfg(make_cfg()), device="cpu", draw=ReferenceDraws(3))
     problems = []
@@ -505,6 +506,8 @@ def test_ba_guard_keeps_the_map_in_front():
 
     base, kept, _ = run(1e-4, False)
     assert kept == n_obs
+    same, _, _ = run(1e-4, True)
+    assert torch.equal(same.points, base.points) and torch.equal(same.poses.t, base.poses.t)
     _, kept, med = run(1e-8, False)
     assert kept == 0 and med < 0, (kept, med)
     res, kept, med = run(1e-8, True)

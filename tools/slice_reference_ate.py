@@ -43,6 +43,8 @@ corrected (the frames dispatched when the correction ends).
     JAX_PLATFORMS=cpu python tools/slice_reference_ate.py --klt --frames 60 --flush-at 10
     JAX_PLATFORMS=cpu python tools/slice_reference_ate.py --rgbd --frames 30
     JAX_PLATFORMS=cpu python tools/slice_reference_ate.py --mono --frames 60
+    JAX_PLATFORMS=cpu python tools/slice_reference_ate.py --mono-inertial --frames 60 [--perturb SEED]
+    JAX_PLATFORMS=cpu python tools/slice_reference_ate.py --mono-inertial --oracle --frames 60 [--key SEED]
 
 With `--vio` it runs `tools/bench_vio.py`'s configuration instead: the
 stereo-inertial pipeline (`StereoInertialVO.process_stereo_inertial`) over
@@ -84,6 +86,22 @@ of each) and map points, the scale-aligned ATE over the OK frames
 solve's model and good count, the runs of the keyframe-rate programs, and
 the keyframes from `_create_keyframe` with the new points each
 triangulated.
+
+With `--mono-inertial` it runs `MonoInertialVO.process_mono_inertial` over
+the left images and the 200 Hz IMU stream of `tools/bench_vio.py`'s world
+at its configuration with `sensor=IMU_MONOCULAR` and `bf=0` (the smoke's
+mono-inertial image run); with `--oracle` as well,
+`process_oracle_mono_inertial` over tests/test_mono_inertial.py's world
+(oracle features with 0.3 px noise at 640x480, `make_inertial_world(60,
+10 fps, 8000 landmarks, seed 3, excitation 4.0)`) at that test's
+configuration (the smoke's oracle run). `--key SEED` replaces the two-view
+RANSAC key PRNGKey(3) by PRNGKey(SEED). Both track synchronously, so
+`--flush-at` does not apply. It prints the states (first letters), the
+init frame, the LOST frames after the two bootstrap frames, `imu_ready`,
+the initialization stages with their frames and the scale applied at each,
+the Horn scale and the scale-aligned and unscaled ATE over the OK frames,
+the gravity's angle to the truth, the biases, the keyframe frames and the
+runs of each program.
 
 This is an accuracy figure, not a speed: `chip_smoke.py` holds the port's
 ATE on the GPU to it.
@@ -302,6 +320,87 @@ def run_mono(args):
     }, vo, iw.world
 
 
+# tests/test_mono_inertial.py's world and configuration (the smoke's
+# mono-inertial oracle run)
+ORACLE_W, ORACLE_H, ORACLE_F = 640, 480, 500.0
+
+
+def mono_inertial_config(oracle: bool) -> SystemConfig:
+    """With `oracle`, tests/test_mono_inertial.py's configuration; else
+    tools/bench_vio.py's with `sensor=IMU_MONOCULAR` and `bf=0`."""
+    if oracle:
+        return SystemConfig(
+            sensor=Sensor.IMU_MONOCULAR,
+            camera=CameraConfig(width=ORACLE_W, height=ORACLE_H, fx=ORACLE_F, fy=ORACLE_F,
+                                cx=320.0, cy=240.0, bf=0.0, fps=10.0),
+            extractor=ExtractorConfig(n_features=1200),
+            ba=BAConfig(max_local_kfs=8, max_local_points=2048, local_ba_iters=6,
+                        inertial_window=8),
+            map=MapConfig(max_keyframes=128, max_points=32768, max_obs_per_point=8),
+            imu=IMUConfig(freq=200.0),
+            tracker=TrackerConfig(max_frames_between_kf=4),
+        )
+    cfg = vio_config()
+    return dataclasses.replace(cfg, sensor=Sensor.IMU_MONOCULAR,
+                               camera=dataclasses.replace(cfg.camera, bf=0.0))
+
+
+def run_mono_inertial(args):
+    """MonoInertialVO over tests/test_mono_inertial.py's oracle world
+    (`--oracle`) or over the left images and IMU stream of bench_vio.py's
+    world: (figures, MonoInertialVO, InertialWorld)."""
+    vo = ref_vio.MonoInertialVO(mono_inertial_config(args.oracle))
+    if args.key is not None:
+        vo._key = jax.random.PRNGKey(args.key)
+    counts, stage_frames, scales = {}, [], []
+    instrument_vio(vo, counts, stage_frames)
+    count_calls(vo, "_local_ba_fn", counts, "local_ba")
+    apply_scale = vo._apply_map_scale
+
+    def applied(s):
+        scales.append(float(s))
+        return apply_scale(s)
+
+    vo._apply_map_scale = applied
+    t0 = time.time()
+    if args.oracle:
+        iw = synthetic.make_inertial_world(n_frames=60, fps=10.0, n_landmarks=8000, seed=3,
+                                           excitation=4.0)
+        for i in range(args.frames):
+            fr = synthetic.render_oracle_frame(iw.world, i, ORACLE_F, ORACLE_F, 320.0, 240.0,
+                                               250.0, ORACLE_W, ORACLE_H, max_features=1000,
+                                               px_noise=0.3)
+            vo.process_oracle_mono_inertial(fr.xy, fr.desc, fr.level, iw.imu_per_frame[i],
+                                            iw.timestamps[i])
+            print(f"frame {i} {time.time() - t0:.1f}s", file=sys.stderr, flush=True)
+    else:
+        iw, _, frames = synthetic.make_billboard_inertial_sequence(
+            args.frames, FX, FY, CX, CY, W, H, BF, n_landmarks=2000, seed=5)
+        rng = np.random.default_rng(args.perturb) if args.perturb is not None else None
+        for i in range(args.frames):
+            img = frames[i][0] if rng is None else perturbed(frames[i][0], rng)
+            vo.process_mono_inertial(img, iw.imu_per_frame[i], iw.timestamps[i])
+            print(f"frame {i} {time.time() - t0:.1f}s", file=sys.stderr, flush=True)
+    vo.flush()
+    states = [r.state for r in vo.records]
+    first_ok = states.index("OK") if "OK" in states else None
+    g = np.asarray(vo.g_w_dev, np.float64)
+    cos = g @ iw.gravity_w / max(np.linalg.norm(g) * np.linalg.norm(iw.gravity_w), 1e-12)
+    return {
+        "init_frame": first_ok, "states": "".join(st[0] for st in states),
+        "lost_after_bootstrap": states[2:].count("LOST"),
+        "not_ok_after_init": None if first_ok is None else sum(
+            1 for st in states[first_ok:] if st != "OK"),
+        "last_state": states[-1],
+        "imu_ready": bool(vo.imu_ready), "init_stage": int(vo._init_stage),
+        "init_stage_frames": stage_frames, "applied_scales": scales,
+        "gravity_angle_deg": float(np.degrees(np.arccos(np.clip(cos, -1.0, 1.0)))),
+        "bias_gyro": np.asarray(vo.bg_dev).tolist(), "bias_acc": np.asarray(vo.ba_dev).tolist(),
+        "keyframe_frames": np.asarray(vo.map.kf_frame_id[:vo.n_kf]).tolist(),
+        "programs": counts,
+    }, vo, iw
+
+
 def loop_frames(n_frames: int):
     """bench.py --loop's world: (landmark world, stereo frames)."""
     iw, _, frames = synthetic.make_billboard_inertial_sequence(
@@ -497,7 +596,31 @@ def main():
                     help="process_rgbd over the first --frames of bench.py's world")
     ap.add_argument("--mono", action="store_true",
                     help="MonoVO over the left images of tools/bench_vio.py's world")
+    ap.add_argument("--mono-inertial", action="store_true",
+                    help="MonoInertialVO over the left images and IMU of tools/bench_vio.py's"
+                         " world")
+    ap.add_argument("--oracle", action="store_true",
+                    help="with --mono-inertial: tests/test_mono_inertial.py's oracle world")
+    ap.add_argument("--key", type=int, metavar="SEED",
+                    help="with --mono-inertial: the two-view RANSAC key PRNGKey(SEED)"
+                         " (default 3, the pipeline's own)")
     args = ap.parse_args()
+    if args.mono_inertial:
+        t0 = time.time()
+        extra, vo, iw = run_mono_inertial(args)
+        est = vo.trajectory_wc()
+        ok = [i for i, r in enumerate(vo.records) if r.state == "OK"]
+        gt = iw.world.poses_wc[ok, :3, 3]
+        scaled = evaluation.ate_rmse(est[ok, :3, 3], gt, with_scale=True)
+        unscaled = evaluation.ate_rmse(est[ok, :3, 3], gt, with_scale=False)
+        out = {"frames": args.frames, "world": "oracle" if args.oracle else "vio_left",
+               "perturb": args.perturb, "key": args.key, "ok_frames": len(ok),
+               "horn_scale": scaled["scale"], "scaled_ate_cm": scaled["rmse"] * 100.0,
+               "unscaled_ate_cm": unscaled["rmse"] * 100.0, "keyframes": vo.n_kf,
+               "map_points": vo.n_mp, **extra, "commit": git_commit(),
+               "platform": jax.devices()[0].platform, "seconds": time.time() - t0}
+        print(json.dumps(out))
+        return
     if args.mono:
         t0 = time.time()
         extra, vo, world = run_mono(args)

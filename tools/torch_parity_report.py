@@ -74,17 +74,45 @@ runs; one JSON line with each run's
 scale-aligned ATE, OK frames, keyframes and points: the spread of the
 limits that tests/test_torch_mono_vo.py holds its own-sampler run to.
 
+With `--mono-inertial` it runs MonoInertialVO over the smoke's image run
+(the left images and IMU stream of tools/bench_vio.py's world at its
+configuration with sensor=IMU_MONOCULAR and bf=0), or with `--oracle` over
+its oracle run (tests/test_mono_inertial.py's world and configuration):
+the reference first, with its features, its map and state after the
+initialization BA, each local BA and each initialization stage recorded
+(`tests/test_torch_mono_inertial.py::instrument`); then the port fed its
+features, two-view draws (PRNGKey(3), split per attempt) and those states
+(`feed`: "fed"), the same fed only until its first stage, every
+program from there on its own ("fed_to_first_stage"), and the port alone
+(its own features, default draws and BAs: "own"). The line adds each
+run's states, init frame, stages with their frames and applied scales,
+Horn scale, ATEs and gravity angle, the first frame whose keyframe
+decision, inliers or map points differ from the reference's, and the
+largest position difference of the trajectories.
+
+With `--mono-inertial-seeds` it runs tests/test_mono_inertial.py's world
+(the first `--frames` frames) through the reference with its two-view key
+3, 103, 203, 303 and 403, and through the port with the same keys'
+draws (`KeySampler`), at one torch thread as the test runs; one JSON line
+with each run's figures, as `--mono-inertial` gives them. With `--rescale`
+the port scales its initial map to a median depth of 1 after the
+initialization BA, as MonoVO does (ROADMAP H13) and MonoInertialVO does
+not (H15).
+
     JAX_PLATFORMS=cpu python tools/torch_parity_report.py [--frames 100]
     JAX_PLATFORMS=cpu python tools/torch_parity_report.py --bench-cadences --frames 200
     JAX_PLATFORMS=cpu python tools/torch_parity_report.py --loop --frames 200
     JAX_PLATFORMS=cpu python tools/torch_parity_report.py --klt --frames 60
     JAX_PLATFORMS=cpu python tools/torch_parity_report.py --vio [--smoother] --frames 60
     JAX_PLATFORMS=cpu python tools/torch_parity_report.py --mono --frames 60
+    JAX_PLATFORMS=cpu python tools/torch_parity_report.py --mono-inertial [--oracle] --frames 60
+    JAX_PLATFORMS=cpu python tools/torch_parity_report.py --mono-inertial-seeds --frames 60 [--rescale]
     JAX_PLATFORMS=cpu python tools/torch_parity_report.py --mono-seeds --frames 20
 """
 
 import argparse
 import dataclasses
+import functools
 import json
 import os
 import sys
@@ -518,6 +546,145 @@ def mono_seeds_report(n: int) -> None:
     print(json.dumps(out))
 
 
+def mono_inertial_report(n: int, oracle: bool) -> None:
+    """MonoInertialVO's reference and the port fed its features (on the
+    image world), two-view draws and BA and stage results, over the
+    smoke's image run (the left images and IMU of tools/bench_vio.py's
+    world) or with `oracle` its oracle run (tests/test_mono_inertial.py's
+    world); one JSON line."""
+    import test_torch_mono_inertial as tmi
+    from slice_reference_ate import mono_inertial_config
+    from vi_slam_tpu.pipeline import vio as ref_vio
+    from vi_slam_tpu_torch.pipeline.vio import MonoInertialVO
+
+    torch.set_num_threads(1)
+    t0 = time.time()
+    ref_cfg = mono_inertial_config(oracle)
+    port_cfg = config_from_dict(dataclasses.asdict(ref_cfg))
+    if oracle:
+        iw, inputs = tmi.oracle_inputs(n)
+    else:
+        iw, frames = chip_smoke.vio_world()
+    ref, ref_ev = ref_vio.MonoInertialVO(ref_cfg), tmi.Events()
+    tmi.instrument(ref, ref_ev)
+    ref_feats = []
+    extract = ref.extractor
+
+    def ref_extract(img):
+        f = extract(img)
+        ref_feats.append([np.array(x) for x in f])
+        return f
+
+    ref.extractor = ref_extract
+
+    def drive(vo, name):
+        for i in range(n):
+            if oracle:
+                vo.process_oracle_mono_inertial(*inputs[i])
+            else:
+                vo.process_mono_inertial(frames[i][0], iw.imu_per_frame[i], iw.timestamps[i])
+            print(f"{name} frame {i} {time.time() - t0:.1f}s", file=sys.stderr, flush=True)
+        vo.flush()
+
+    drive(ref, "ref")
+    runs = {"fed": True, "fed_to_first_stage": False}
+    out = {"world": (f"tests/test_mono_inertial.py's, {n} frames" if oracle else
+                     f"the left images and IMU of {n} frames of tools/bench_vio.py's world")
+           + ", CPU, one torch thread", "ref": mono_inertial_summary(ref, iw, ref_ev)}
+    ref_stats = {r.frame_id: (s.n_kfs, s.n_inliers, s.n_mps) for r, s in zip(ref.records,
+                                                                             ref.stats)}
+    for name, after_stage in runs.items():
+        vo = MonoInertialVO(port_cfg, device="cpu", draw=ReferenceDraws(3))
+        if not oracle:
+            queue = iter(ref_feats)
+
+            def fed_extract(img, _q=queue):
+                f = list(next(_q))
+                f[4] = f[4].view(np.int32)
+                return Features(*(torch.from_numpy(x) for x in f))
+
+            vo.extractor = fed_extract
+        ev = tmi.feed(vo, ref_ev, after_stage=after_stage)
+        stats = {}
+        record_frames(vo, stats)
+        drive(vo, name)
+        out[name] = mono_inertial_summary(vo, iw, ev)
+        out[f"first_departure_{name}"] = first_departure(ref_stats, stats, n)
+        out[f"first_state_departure_{name}"] = state_departure(ref, vo)
+        out[f"largest_pose_difference_m_{name}"] = float(np.abs(
+            vo.trajectory_wc()[:, :3, 3] - ref.trajectory_wc()[:, :3, 3]).max())
+    vo, ev = MonoInertialVO(port_cfg, device="cpu"), tmi.Events()
+    tmi.instrument(vo, ev)
+    drive(vo, "own")
+    out["own"] = mono_inertial_summary(vo, iw, ev)
+    out["seconds"] = time.time() - t0
+    print(json.dumps(out))
+
+
+def mono_inertial_summary(vo, iw, ev):
+    """The figures of a mono-inertial run on tests/test_mono_inertial.py's
+    world that its checks read (either side)."""
+    states = [r.state for r in vo.records]
+    ok = [i for i, st in enumerate(states) if st == "OK"]
+    out = {"init_frame": states.index("OK") if ok else None,
+           "states": "".join(st[0] for st in states), "ok_frames": len(ok),
+           "lost_after_bootstrap": states[2:].count("LOST"), "last": states[-1] if states else None,
+           "imu_ready": bool(vo.imu_ready), "init_stage": int(vo._init_stage),
+           "stage_frames": [s["frame"] for s in ev.stages],
+           "applied_scales": [s["scale"] for s in ev.stages], "keyframes": vo.n_kf,
+           "map_points": vo.n_mp, "two_view": getattr(vo, "init_result", None)}
+    if len(ok) >= 3:
+        traj = vo.trajectory_wc()
+        gt = iw.world.poses_wc[ok, :3, 3]
+        scaled = ref_evaluation.ate_rmse(traj[ok, :3, 3], gt, with_scale=True)
+        unscaled = ref_evaluation.ate_rmse(traj[ok, :3, 3], gt, with_scale=False)
+        g = np.asarray(vo.g_w_dev.cpu() if isinstance(vo.g_w_dev, torch.Tensor) else vo.g_w_dev,
+                       np.float64)
+        cos = g @ iw.gravity_w / max(np.linalg.norm(g) * np.linalg.norm(iw.gravity_w), 1e-12)
+        out.update(horn_scale=scaled["scale"], scaled_ate_m=scaled["rmse"],
+                   unscaled_ate_m=unscaled["rmse"],
+                   gravity_deg=float(np.degrees(np.arccos(np.clip(cos, -1.0, 1.0)))))
+    return out
+
+
+def mono_inertial_seeds_report(n: int, rescale: bool) -> None:
+    """tests/test_mono_inertial.py's world, its first `n` frames, over five
+    two-view keys: the reference (PRNGKey) and the port (KeySampler, the
+    same draws) keyed 3, 103, 203, 303 and 403, at one torch thread as the
+    test runs; with `rescale` the port with MonoVO's rescale of the
+    initial map. One JSON line with each run's figures."""
+    import test_torch_mono_inertial as tmi
+    from vi_slam_tpu.pipeline import vio as ref_vio
+    from vi_slam_tpu_torch.pipeline.mono_vo import MonoVO
+    from vi_slam_tpu_torch.pipeline.vio import MonoInertialVO
+    from vi_slam_tpu_torch.utils.sampling import KeySampler
+
+    torch.set_num_threads(1)
+    t0 = time.time()
+    iw, inputs = tmi.oracle_inputs(n)
+    cfg = tmi.make_cfg()
+    out = {"world": f"tests/test_mono_inertial.py's, {n} frames, CPU", "rescale": rescale,
+           "ref": [], "port": []}
+    for k in range(5):
+        seed = 3 + 100 * k
+        ref, ev = ref_vio.MonoInertialVO(cfg), tmi.Events()
+        ref._key = jax.random.PRNGKey(seed)
+        tmi.instrument(ref, ev)
+        tmi.drive(ref, inputs)
+        out["ref"].append({"key": seed, **mono_inertial_summary(ref, iw, ev)})
+        vo, ev = MonoInertialVO(tmi.port_cfg(cfg), device="cpu", draw=KeySampler(seed)), \
+            tmi.Events()
+        if rescale:
+            vo._rescale_initial_map = functools.partial(MonoVO._rescale_initial_map, vo)
+        tmi.instrument(vo, ev)
+        tmi.drive(vo, inputs)
+        out["port"].append({"seed": seed, **mono_inertial_summary(vo, iw, ev)})
+        print(f"seed {seed} {time.time() - t0:.1f}s", file=sys.stderr, flush=True)
+    out["seconds"] = time.time() - t0
+    print(json.dumps(out))
+
+
+
 def klt_frame_on_reference_state(ref_cfg, port_cfg, frames, f):
     """The reference run again up to frame `f`, its KLT frame program's
     inputs at `f` kept (map, track set, previous pyramid, carry, motion
@@ -579,6 +746,15 @@ def main():
                     help="MonoVO over the left images of tools/bench_vio.py's world")
     ap.add_argument("--mono-seeds", action="store_true",
                     help="tests/test_mono_vo.py's world over five two-view seeds")
+    ap.add_argument("--mono-inertial", action="store_true",
+                    help="MonoInertialVO over the smoke's image run (--oracle: its oracle run)")
+    ap.add_argument("--oracle", action="store_true",
+                    help="with --mono-inertial: tests/test_mono_inertial.py's oracle world")
+    ap.add_argument("--mono-inertial-seeds", action="store_true",
+                    help="tests/test_mono_inertial.py's world over five two-view keys")
+    ap.add_argument("--rescale", action="store_true",
+                    help="with --mono-inertial-seeds: the port with MonoVO's rescale of the"
+                         " initial map")
     ap.add_argument("--vio", action="store_true",
                     help="tools/bench_vio.py's stereo-inertial configuration and world")
     ap.add_argument("--smoother", action="store_true",
@@ -589,6 +765,12 @@ def main():
         return
     if args.mono_seeds:
         mono_seeds_report(args.frames)
+        return
+    if args.mono_inertial:
+        mono_inertial_report(args.frames, args.oracle)
+        return
+    if args.mono_inertial_seeds:
+        mono_inertial_seeds_report(args.frames, args.rescale)
         return
     if args.vio:
         vio_report(args.frames, args.smoother)

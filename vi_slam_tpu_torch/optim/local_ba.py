@@ -240,10 +240,11 @@ def _ba_core(cam: CameraParams, prob: BAProblem, iters: int, use_huber: bool, la
     step can follow (a monocular map's scale, with one keyframe fixed),
     float32 rounding can make LM take it, and the map comes out mirrored
     behind its cameras with no observation left (ROADMAP H13). With
-    `guard_in_front` (the monocular pipeline's BAs) an LM step is accepted
-    only if it keeps every observation that is in the cost; the JAX
-    package has no such rule, and the other pipelines keep its LM as it
-    is."""
+    `guard_in_front` (the monocular pipelines' BAs) an LM step is accepted
+    only if it keeps at least half of the observations in the cost at the
+    start, which refuses the mirror and leaves LM's other steps as they
+    are (H15). The JAX package has no such rule, and the other pipelines
+    keep its LM as it is."""
     dt = prob.points.dtype
     dev = prob.points.device
 
@@ -268,7 +269,7 @@ def _ba_core(cam: CameraParams, prob: BAProblem, iters: int, use_huber: bool, la
             costs.append(cost)
     else:
         lam = torch.full((), lam0, dtype=dt, device=dev)
-        cost, n_obs = cost_at(poses, points)
+        cost, n_obs0 = cost_at(poses, points)
         init_cost = cost
         for _ in range(iters):
             dxc, dxp = _build_and_solve(cam, poses, points, prob, lam, use_huber, assembly)
@@ -277,8 +278,7 @@ def _ba_core(cam: CameraParams, prob: BAProblem, iters: int, use_huber: bool, la
             cand_cost, cand_n_obs = cost_at(cand_poses, cand_points)
             accept = cand_cost < cost
             if guard_in_front:
-                accept = accept & (cand_n_obs >= n_obs)
-                n_obs = torch.where(accept, cand_n_obs, n_obs)
+                accept = accept & (2 * cand_n_obs >= n_obs0)
             poses = SE3(torch.where(accept, cand_poses.R, poses.R),
                         torch.where(accept, cand_poses.t, poses.t))
             points = torch.where(accept, cand_points, points)

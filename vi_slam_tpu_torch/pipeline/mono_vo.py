@@ -17,8 +17,8 @@ the host. It differs in two places:
 Two guards that the JAX package lacks keep the map's scale gauge from
 breaking the run (ROADMAP F14, H13): the initial map is scaled back to a
 median depth of 1 after its BA (`_rescale_initial_map`), and the BAs
-reject LM steps that take observations out of the cost
-(`ba_guard`, passed to each of its BAs).
+reject an LM step that takes half of the observations out of the cost,
+the mirror (`ba_guard`, passed to each of its BAs).
 
 The host reads the reference makes are kept, on the same frames: the
 match count and the two-view verdict of an initialization attempt, the
@@ -88,7 +88,8 @@ class MonoVO(StereoVO):
         # a monocular map's scale is a gauge of its BAs (keyframe 0 fixed,
         # or one fixed keyframe in a short local window), along which a
         # rounding step can mirror the points behind the cameras and out of
-        # the cost: no LM step of its BAs may take an observation out of it
+        # the cost: no LM step of its BAs may take half of its observations
+        # out of it
         self.ba_guard = True
 
     # ------------------------------------------------------------------ API

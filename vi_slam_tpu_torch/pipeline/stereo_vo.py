@@ -480,7 +480,7 @@ class StereoVO:
         (map, delta) with delta = inv(T_ref before) @ T_ref after, the
         right-multiplicative correction of the live pose chain.
         `guard_in_front`: see `optim/local_ba.py::_ba_core` (off, as in
-        the JAX package, but for the monocular pipeline)."""
+        the JAX package, but for the monocular pipelines)."""
         ba_cfg = self.cfg.ba
         window = steps.covis_window(mstate, ref_slot, ba_cfg.max_local_kfs)
         alive = window >= 0

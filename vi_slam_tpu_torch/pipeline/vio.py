@@ -1,5 +1,7 @@
-"""Stereo visual-inertial odometry — a PyTorch copy of the JAX package's
-`pipeline/vio.py::StereoInertialVO`.
+"""Visual-inertial odometry — a PyTorch copy of the JAX package's
+`pipeline/vio.py::StereoInertialVO` and `MonoInertialVO` (the monocular
+sensor under the same inertial stack, its initialization solving the
+map's scale too).
 
 The keyframe chain's preintegration lives on the device as one
 `Preintegrated` with a leading (max_keyframes,) dimension, beside the
@@ -48,6 +50,7 @@ from vi_slam_tpu_torch.lie.se3 import SE3
 from vi_slam_tpu_torch.optim import inertial_init as iinit
 from vi_slam_tpu_torch.optim import pose_inertial, smoother, vi_ba
 from vi_slam_tpu_torch.pipeline import steps
+from vi_slam_tpu_torch.pipeline.mono_vo import MonoVO
 from vi_slam_tpu_torch.pipeline.stereo_vo import (
     LOST, NOT_INITIALIZED, OK, RECENTLY_LOST, FrameJob, StereoVO, TrackStats,
     make_oracle_features,
@@ -55,6 +58,7 @@ from vi_slam_tpu_torch.pipeline.stereo_vo import (
 from vi_slam_tpu_torch.retrieval import vocabulary as voc
 from vi_slam_tpu_torch.slam_map.state import _scatter_set_, dev_index
 from vi_slam_tpu_torch.utils.config import SystemConfig
+from vi_slam_tpu_torch.utils.sampling import DrawFn, KeySampler
 
 # the inertial programs the timer counts ("smoother": a smoother step inside
 # track_vio; "smoother_slide": its marginalization, one eigh wait on a card)
@@ -723,6 +727,96 @@ class StereoInertialVO(StereoVO):
             return st
         self.state = LOST
         return super()._handle_failure(job, st, T_np)
+
+
+class MonoInertialVO(StereoInertialVO):
+    """The monocular-inertial pipeline (IMU_MONOCULAR): MonoVO's two-view
+    bootstrap, keyframe policy and triangulated keyframes under
+    StereoInertialVO's inertial stack. The staged initialization solves
+    the map's scale with gravity and applies it (`_apply_map_scale`).
+
+    The monocular behaviours are MonoVO's unbound methods, called on this
+    object (no diamond inheritance), as the JAX package's MonoInertialVO
+    borrows them; the inertial hooks stay StereoInertialVO's. MonoVO's
+    constructor does not run, so the attributes its methods read are set
+    here. It departs from MonoVO in two places (ROADMAP H15): the
+    two-view draws are the JAX package's own stream (`KeySampler(3)`, its
+    PRNGKey(3)), and the initial map keeps its BA's scale, as the JAX
+    package's does (MonoVO's rescale to a median depth of 1 makes the
+    first stage's scale solve fail). Its BAs keep MonoVO's guard against
+    the mirror (`ba_guard`)."""
+
+    def __init__(self, cfg: SystemConfig, device="cuda", vocab: Optional[voc.Vocabulary] = None,
+                 draw: Optional[DrawFn] = None):
+        super().__init__(cfg, device=device, vocab=vocab)
+        if self.loop_closer is not None:
+            # gravity and the IMU make the scale observable: loops stay SE3
+            self.loop_closer.fix_scale = True
+        self._init_ref = None
+        self.init_draw: DrawFn = draw if draw is not None else KeySampler(3)
+        self.init_result = None
+        self.init_depth_after_ba = None
+        self.ba_guard = True
+
+    # the monocular behaviours, MonoVO's
+    _initialize = MonoVO._initialize
+    _two_view = MonoVO._two_view
+    _initial_map = MonoVO._initial_map
+    _initial_ba = MonoVO._initial_ba
+    _need_keyframe = MonoVO._need_keyframe
+    _triangulate_into = MonoVO._triangulate_into
+
+    def _rescale_initial_map(self, ids: torch.Tensor):
+        """Left out, as the JAX package leaves it out: the first inertial
+        stage solves the map's scale."""
+
+    def _local_ba_program(self, mstate, ref_slot: int):
+        """StereoVO's local BA with the monocular guard (MonoVO's)."""
+        return super()._local_ba_program(mstate, ref_slot, guard_in_front=self.ba_guard)
+
+    def _create_kf_shell(self, feats, timestamp, frame_id=None):
+        """A bootstrap keyframe: the running segment is closed into its slot
+        and the slot marked a chain break (the segment reaches back past
+        the held reference frame, so it is not the keyframe-0-to-1 edge;
+        the initialization and the VI BAs mask it)."""
+        MonoVO._create_kf_shell(self, feats, timestamp, frame_id=frame_id)
+        slot = self.ref_kf
+        self._accum = self._close_segment(slot, self._accum, self.vel_w_dev, self.bg_dev,
+                                          self.ba_dev)
+        self.kf_chain.append(slot)
+        self._chain_breaks.add(slot)
+
+    def _create_keyframe(self, feats, uright, depth, matched_mp, timestamp, pose_dev=None,
+                         frame_id=None, pose_np=None):
+        """MonoVO's keyframe (insert and triangulate), then the segment
+        close and the staged initialization."""
+        MonoVO._create_keyframe(self, feats, uright, depth, matched_mp, timestamp,
+                                pose_dev=pose_dev, frame_id=frame_id, pose_np=pose_np)
+        slot = self.ref_kf
+        self._accum = self._close_segment(slot, self._accum, self.vel_w_dev, self.bg_dev,
+                                          self.ba_dev)
+        self.kf_chain.append(slot)
+        self._maybe_init_imu()
+
+    # ------------------------------------------------------------------ API
+
+    def process_oracle_mono_inertial(self, xy, desc, level, imu_samples,
+                                     timestamp: float) -> TrackStats:
+        """Track one frame of given keypoints (pixels (V, 2), uint32
+        descriptors (V, 8), pyramid levels (V,)) with its IMU samples,
+        synchronously."""
+        self._pre_frame(timestamp)
+        minus1 = np.full((len(xy),), -1.0, np.float32)
+        feats, ur, dp = make_oracle_features(self.cfg.extractor.n_features, xy, minus1, minus1,
+                                             desc, level, device=self.device)
+        return self._inertial_entry(feats, ur, dp, imu_samples, timestamp)
+
+    def process_mono_inertial(self, img, imu_samples, timestamp: float) -> TrackStats:
+        """Track one grey image (H, W) with its IMU samples, synchronously."""
+        self._pre_frame(timestamp)
+        feats = self.extractor(self._upload_f32(img))
+        minus1 = torch.full((feats.xy.shape[0],), -1.0, dtype=torch.float32, device=self.device)
+        return self._inertial_entry(feats, minus1, minus1, imu_samples, timestamp)
 
 
 def make_stereo_inertial_vo(cfg: SystemConfig, vocab: Optional[voc.Vocabulary] = None,
